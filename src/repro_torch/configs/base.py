@@ -1,0 +1,205 @@
+"""Config system: model architecture, input shapes, and run/distribution config.
+
+Every assigned architecture gets a module under ``repro_torch.configs`` exporting a
+``CONFIG: ModelConfig``; the registry in ``repro_torch.configs`` maps ``--arch`` ids
+to them.  Shapes are global (the assignment pairs every LM arch with the same
+four shapes); per-arch applicability is encoded in :func:`shape_applicable`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Model architecture
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None          # default d_model // n_heads
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+
+    # SSM (Mamba2) / hybrid
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
+    attn_every: int = 0            # hybrid: apply shared attn block every k layers
+
+    # RWKV6
+    rwkv: bool = False
+
+    # Attention
+    attention: str = "full"        # full | chunked_local
+    chunk_size: int = 8192         # for chunked_local
+    rope_theta: float = 1e6
+    qkv_bias: bool = False
+
+    # Encoder-decoder (whisper) / multimodal frontends
+    n_enc_layers: int = 0
+    frontend: Optional[str] = None  # audio | vision | None
+    frontend_seq: int = 0           # frames/patches emitted by the (stubbed) frontend
+
+    # misc
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    act: str = "silu"               # silu | gelu
+    glu: bool = True                # gated MLP (3 matrices) vs plain (2)
+
+    source: str = ""                # provenance note [source; tier]
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+
+    # ---- derived quantities -------------------------------------------------
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def mlp_params(self) -> int:
+        mats = 3 if self.glu else 2
+        return mats * self.d_model * self.d_ff
+
+    def attn_params(self) -> int:
+        return (self.d_model * self.q_dim + 2 * self.d_model * self.kv_dim
+                + self.q_dim * self.d_model)
+
+    def layer_params(self) -> int:
+        """Approximate params of one decoder block (norms excluded)."""
+        if self.rwkv:
+            tmix = 5 * self.d_model * self.d_model + 3 * self.d_model * 96
+            cmix = 2 * self.d_model * self.d_ff
+            return tmix + cmix
+        if self.family in ("ssm", "hybrid"):
+            d_in = self.ssm_expand * self.d_model
+            n_g = max(1, self.n_kv_heads) if self.family == "ssm" else 1
+            n_g = 1
+            conv_dim = d_in + 2 * n_g * self.ssm_state
+            nheads = d_in // self.ssm_headdim
+            in_proj = self.d_model * (2 * d_in + 2 * n_g * self.ssm_state + nheads)
+            out_proj = d_in * self.d_model
+            mamba = in_proj + out_proj + conv_dim * self.ssm_conv
+            return mamba
+        moe = 0
+        if self.n_experts:
+            mats = 3 if self.glu else 2
+            moe = (self.n_experts + self.n_shared_experts) * mats * self.d_model * self.d_ff
+            moe += self.d_model * self.n_experts  # router
+            return self.attn_params() + moe
+        return self.attn_params() + self.mlp_params()
+
+    def embed_params(self) -> int:
+        mult = 1 if self.tie_embeddings else 2
+        return mult * self.vocab_size * self.d_model
+
+    def total_params(self) -> int:
+        n = self.n_layers * self.layer_params() + self.embed_params()
+        if self.family == "hybrid" and self.attn_every:
+            # one shared attention+MLP block (zamba2-style), applied periodically
+            n += self.attn_params() + self.mlp_params()
+        if self.n_enc_layers:
+            # encoder blocks (self-attn + mlp) + decoder cross-attn already counted? no:
+            # decoder blocks in enc-dec get an extra cross-attention
+            n += self.n_enc_layers * (self.attn_params() + self.mlp_params())
+            n += self.n_layers * self.attn_params()  # cross-attn in each decoder layer
+        return n
+
+    def active_params(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts)."""
+        if not self.n_experts:
+            return self.total_params()
+        mats = 3 if self.glu else 2
+        active_moe = (self.top_k + self.n_shared_experts) * mats * self.d_model * self.d_ff
+        per_layer = self.attn_params() + active_moe + self.d_model * self.n_experts
+        return self.n_layers * per_layer + self.embed_params()
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned: same 4 shapes for every LM arch)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch        # one new token per sequence
+        return self.global_batch * self.seq_len
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, per the assignment rules.
+
+    ``long_500k`` needs sub-quadratic attention: runs for SSM / hybrid /
+    linear-attention / chunked-local archs, skipped for pure full attention.
+    """
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            model.family in ("ssm", "hybrid")
+            or model.rwkv
+            or model.attention == "chunked_local"
+        )
+        if not sub_quadratic:
+            return False, ("full quadratic attention at seq 524288 — no "
+                           "sub-quadratic path in this config (see DESIGN.md §4)")
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Run / distribution config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    strategy: str = "auto"         # auto | pp_shardmap | gspmd_tp | gspmd_pp
+    schedule: str = "hybrid"       # gpipe | hybrid    (pp schedules; paper default: hybrid)
+    pp_stages: int = 0             # 0 = choose from mesh
+    microbatches: int = 0          # 0 = choose (>= stages)
+    remat: bool = True
+    use_kernels: bool = False      # reference's Pallas switch; the port routes by device
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    fsdp: bool = False             # shard params over "data" too (gspmd_tp)
+    zero1: bool = True             # shard optimizer moments over "data"
+    grad_compression: str = "none" # reserved: none | int8 (error-feedback)
+    grad_accum: int = 1            # sequential microbatches in gspmd_tp train
+    seq_shard: bool = False        # sequence-sharded residual stream
+    #                                (Megatron-SP analogue via GSPMD constraint)
+    seed: int = 0
+    # Dry-run fidelity: unroll the layer loop so cost_analysis/HLO collective
+    # counts are exact (scan bodies are only counted once by XLA cost analysis).
+    unroll_layers: bool = False
