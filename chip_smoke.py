@@ -8,16 +8,31 @@ Phases, each of which raises on failure (the script then exits nonzero):
 1. require a CUDA device; print ``nvidia-smi``'s card name and power limit;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card at
-   granite-8b shapes, and time kernel, plain version and a library call;
+   granite-8b shapes (the decode kernel also on a lane with no valid
+   position, the paged kernel over 16 lanes' block tables with shared
+   blocks), and time kernel, plain version and a library call;
 4. reduced granite in fp32 with the same weights on the card (kernels) and
-   on the CPU (plain versions): logits and greedy ServeEngine tokens agree;
+   on the CPU (plain versions): logits and greedy ServeEngine tokens agree,
+   over dense lanes and over the paged pool with the prefix cache (a run
+   with full hits, a COW split, preemptions and a rejection);
 5. a narrow granite in bf16 (granite-8b's attention geometry and vocab,
    d_model 1024, 4 layers) on the card against the same weights on the CPU:
    bucketed right-padded prefill and decode logits agree, and every token
-   the card's ServeEngine serves is a greedy choice of the CPU model;
+   the card's dense and paged ServeEngines serve is a greedy choice of the
+   CPU model;
 6. full-width granite-8b (36 layers, bf16, random seeded weights) served
-   through ServeEngine: 16 requests, every kernel's launch count rises;
-   then the decode step, a prefill dispatch and the sampler are timed.
+   through ServeEngine over dense lanes: 16 requests, every kernel of the
+   dense path launched; then the decode step, a prefill dispatch and the
+   sampler are timed;
+7. the same weights served over the paged pool with the prefix cache: 32
+   chat requests behind a shared 512-token system prompt, then 4 repeats
+   (full hits), on a pool small enough to preempt; the paged kernel runs 36
+   times a decode step and the dense decode kernel never.
+
+Each path's launch counts are set to 0 just before it is driven and read
+just after: a dense path must launch flash, decode and RMSNorm kernels and
+no paged one, a paged path flash, paged and RMSNorm kernels and no dense
+decode one.
 
 The line before the last is a JSON object of per-kernel numbers, the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -63,7 +78,11 @@ MODEL_TOL = 1e-4
 # A fault of masking, padding or indexing moves logits by O(1).
 BF16_MODEL_TOL = 0.25
 
-PHASES = ("build", "kernels", "parity", "parity_bf16", "serve")
+PHASES = ("build", "kernels", "parity", "parity_bf16", "serve", "serve_paged")
+
+# the kernels each serving path must launch; the other decode kernel must not
+DENSE_PATH = ("flash_attention", "decode_attention", "rmsnorm")
+PAGED_PATH = ("flash_attention", "paged_decode_attention", "rmsnorm")
 
 
 _T0 = time.perf_counter()
@@ -96,6 +115,16 @@ def n_sets(bytes_per_set: int, cold_bytes: int = 120 << 20) -> int:
 def bound(flops: float, flops_peak: float, nbytes: float):
     t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_path(counts: dict, path: tuple, what: str) -> None:
+    """Every kernel of ``path`` launched in this run, and the decode kernel
+    of the other layout never did."""
+    missed = [k for k in path if counts[k] == 0]
+    other = "decode_attention" if path == PAGED_PATH else "paged_decode_attention"
+    if missed or counts[other]:
+        raise AssertionError(f"{what}: launches {counts}; the path must launch {list(path)} "
+                             f"and never {other}")
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float,
@@ -240,12 +269,113 @@ def phase_kernels(results: dict) -> None:
     log(f"[kernels] decode B={b} S={s} H={h} G={g} D={d} bf16 ({live} live positions): "
         f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"sdpa {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    # a lane with no valid position: the mean of V over the span, as the TPU
+    # kernel's finite mask gives
+    empty = valid.clone()
+    empty[2] = False
+    for dt, tol, rel in ((bf, BF16_TOL, True), (torch.float32, F32_TOL, False)):
+        qq, kk, vv = q.to(dt), ck.to(dt), cv.to(dt)
+        got = kdec.decode_attention_cuda(qq, kk, vv, empty, scale)
+        check_close(f"decode empty lane {dt}", got, kdec.decode_attention_plain(
+            qq, kk, vv, empty, scale), tol, relative=rel)
+        check_close(f"decode empty lane {dt} = mean of V", got[2, 0],
+                    vv[2].float().mean(0).repeat_interleave(h // g, dim=0), tol, relative=rel)
+    log(f"[kernels] decode lane with no valid position = mean of V over the span (bf16, f32)")
     results["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:64", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         shape=f"B={b} S={s} H={h} G={g} D={d} bf16, {live} live positions")
+    paged_kernel(results, gen)
+
+
+def paged_tables(rng: np.random.Generator, pos: np.ndarray, bs: int, max_blocks: int,
+                 n_shared: int, shared_lanes: int):
+    """Block tables over a pool whose blocks are a random permutation: lane
+    b holds pos[b] // bs + 1 blocks, the first ``n_shared`` of lanes
+    0..shared_lanes-1 are the same blocks (a shared prompt prefix), entries
+    past a lane's blocks are the sink (0).  Returns (tables, pool blocks)."""
+    need = pos // bs + 1
+    n_pool = 1 + int(need.sum()) - sum(min(n_shared, int(need[lane]))
+                                       for lane in range(1, shared_lanes))
+    perm = iter(rng.permutation(np.arange(1, n_pool)))
+    tables = np.zeros((len(pos), max_blocks), np.int32)
+    for lane, n in enumerate(need):
+        for i in range(n):
+            tables[lane, i] = tables[0, i] if (0 < lane < shared_lanes and i < n_shared) \
+                else next(perm)
+    return tables, n_pool
+
+
+def paged_kernel(results: dict, gen: torch.Generator) -> None:
+    """The paged kernel at the full-width decode shape: 16 lanes, bs 16,
+    H 32 over G 8, D 128, bf16, ragged pos of 16-1023, tables a random
+    permutation of pool blocks with a 64-token prefix shared by 8 lanes."""
+    from repro_torch.kernels import paged_attention as kpaged
+    bf = torch.bfloat16
+    b, h, g, d, bs, max_blocks = 16, 32, 8, 128, 16, 64
+    rng = np.random.default_rng(0)
+    pos = rng.integers(16, 1024, size=b)
+    pos[0], pos[1] = 1023, 16                       # a full table and a short lane
+    tables, n_pool = paged_tables(rng, pos, bs, max_blocks, n_shared=4, shared_lanes=8)
+    bt = torch.as_tensor(tables, device="cuda")
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    scale = d ** -0.5
+    pool_bytes = 2 * n_pool * bs * g * d * 2
+    sets = [(_rand((b, 1, h, d), bf, gen), _rand((n_pool, bs, g, d), bf, gen),
+             _rand((n_pool, bs, g, d), bf, gen)) for _ in range(n_sets(pool_bytes))]
+    q, kp, vp = sets[0]
+    err = check_close("paged bf16", kpaged.paged_decode_attention_cuda(q, kp, vp, bt, pos_t,
+                                                                       scale),
+                      kpaged.paged_decode_attention_plain(q, kp, vp, bt, pos_t, scale),
+                      BF16_TOL, relative=True)
+    # fp32 at a small shape: 3 lanes, bs 8, two lanes sharing a block
+    pos32 = np.array([30, 9, 0])
+    t32, n32 = paged_tables(rng, pos32, 8, 5, n_shared=1, shared_lanes=2)
+    args32 = (_rand((3, 1, 8, 64), torch.float32, gen), _rand((n32, 8, 2, 64), torch.float32, gen),
+              _rand((n32, 8, 2, 64), torch.float32, gen), torch.as_tensor(t32, device="cuda"),
+              torch.as_tensor(pos32, dtype=torch.int32, device="cuda"))
+    check_close("paged f32", kpaged.paged_decode_attention_cuda(*args32, 0.125),
+                kpaged.paged_decode_attention_plain(*args32, 0.125), F32_TOL, relative=False)
+    ms = sync_time_ms([lambda a=a: kpaged.paged_decode_attention_cuda(a[0], a[1], a[2], bt,
+                                                                      pos_t, scale)
+                       for a in sets])
+    plain_ms = sync_time_ms([lambda a=a: kpaged.paged_decode_attention_plain(
+        a[0], a[1], a[2], bt, pos_t, scale) for a in sets])
+    span = max_blocks * bs
+    idx = bt.long()
+    mask4 = (torch.arange(span, device="cuda")[None, :] <= pos_t[:, None].long())[:, None, None]
+
+    def gather_sdpa(a):
+        ck = a[1][idx].reshape(b, span, g, d)
+        cv = a[2][idx].reshape(b, span, g, d)
+        return _sdpa_gqa(a[0], ck, cv, attn_mask=mask4).transpose(1, 2)
+    check_close("gather + SDPA vs paged plain", gather_sdpa(sets[0]),
+                kpaged.paged_decode_attention_plain(q, kp, vp, bt, pos_t, scale), BF16_TOL,
+                relative=True)
+    lib_ms = sync_time_ms([lambda a=a: gather_sdpa(a) for a in sets])
+    # bytes: each live pool row (K and V) read once -- a shared block once --
+    # plus q, out, tables, pos; operations: every lane's own live positions
+    live_rows = {int(tables[lane, p // bs]) * bs + p % bs
+                 for lane in range(b) for p in range(pos[lane] + 1)}
+    n_live = int((pos + 1).sum())
+    b_ms, b_by = bound(4.0 * h * d * n_live, PEAK_BF16_FLOPS,
+                       2 * len(live_rows) * g * d * 2 + 2 * 2 * b * h * d + tables.nbytes
+                       + 4 * b)
+    log(f"[kernels] paged B={b} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16 "
+        f"({n_live} live positions, {len(live_rows)} distinct pool rows, pool {n_pool} blocks): "
+        f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"gather+sdpa {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    results["paged_decode_attention"] = dict(
+        name="paged_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:67", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library="kp/vp[block_tables] gathers + SDPA (enable_gqa): two calls, no single "
+                "PyTorch call computes the function",
+        shape=f"B={b} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16, {n_live} live "
+              f"positions")
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +389,34 @@ def _serve(model, params, prompts, max_new, **engine_kw):
         eng.submit(p, max_new=max_new)
     done = eng.run_until_drained()
     return {r.rid: r.out_tokens for r in done}, eng
+
+
+def chat_scenario(model, params, vocab: int, seed: int):
+    """Paged serving with the prefix cache under pressure, small enough for
+    the CPU: 5 requests behind a shared 16-token prefix on a 14-block pool
+    of 4-token blocks (preemptions), one request that can never fit
+    (rejected), and after 4 steps three repeats of the first two prompts
+    (full hits; the two copies of one prompt share its tail block, so one
+    COW-splits).  Returns ({rid: tokens}, snapshot, {rid: prompt})."""
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, size=16)
+    prompts = [np.concatenate([head, rng.integers(0, vocab, size=n)]) for n in (3, 9, 6, 11, 5)]
+    eng = ServeEngine(model, params, max_batch=4, max_len=48,
+                      config=EngineConfig(kv_blocks=14, kv_block_size=4, prefix_cache=True))
+    sent = {eng.submit(p, max_new=8): p for p in prompts}
+    eng.submit(np.concatenate([prompts[0], prompts[1]]), max_new=20)
+    for _ in range(4):
+        eng.step()
+    sent.update({eng.submit(p, max_new=8): p for p in (prompts[0], prompts[0], prompts[1])})
+    done = eng.run_until_drained()
+    snap = eng.metrics_snapshot()
+    if (snap.prefill_skipped < 1 or snap.cow_splits < 1 or snap.preemptions < 1
+            or snap.rejected != 1 or sorted(r.rid for r in done) != sorted(sent)):
+        raise AssertionError(f"chat scenario: {len(done)} finished, full hits "
+                             f"{snap.prefill_skipped}, COW splits {snap.cow_splits}, "
+                             f"preemptions {snap.preemptions}, rejected {snap.rejected}")
+    return {r.rid: r.out_tokens for r in done}, snap, sent
 
 
 def phase_parity(n_layers: int = 4) -> None:
@@ -300,11 +458,24 @@ def phase_parity(n_layers: int = 4) -> None:
     counts = ops.launch_counts()
     if t_cpu != t_gpu:
         raise AssertionError(f"greedy tokens differ card vs CPU: {t_gpu} vs {t_cpu}")
-    if min(counts.values()) == 0:
-        raise AssertionError(f"parity run missed a kernel: {counts}")
+    check_path(counts, DENSE_PATH, "fp32 parity, dense")
     log(f"[parity] reduced granite fp32 ({n_layers} layers): card vs CPU logits max |err| "
         f"{worst:.3e} (tol {MODEL_TOL}); greedy ServeEngine tokens identical for "
         f"{len(t_cpu)} requests; launches {counts}")
+    # the paged engine with the prefix cache, same weights, card vs CPU
+    with torch.no_grad():
+        c_cpu, _, _ = chat_scenario(cpu, p_cpu, cfg.vocab_size, seed=13)
+        ops.reset_launch_counts()
+        c_gpu, snap, _ = chat_scenario(gpu, p_gpu, cfg.vocab_size, seed=13)
+        counts = ops.launch_counts()
+    if c_cpu != c_gpu:
+        raise AssertionError(f"paged greedy tokens differ card vs CPU: {c_gpu} vs {c_cpu}")
+    check_path(counts, PAGED_PATH, "fp32 parity, paged")
+    log(f"[parity] paged + prefix cache fp32: greedy tokens identical card vs CPU for "
+        f"{len(c_cpu)} requests ({snap.prefill_skipped} full hits, {snap.cow_splits} COW "
+        f"splits, {snap.preemptions} preemptions, {snap.rejected} rejected, "
+        f"{snap.prefix_hit_tokens} of {snap.prefix_query_tokens} prompt tokens from the "
+        f"cache); launches {counts}")
 
 
 def phase_parity_bf16(n_layers: int = 4) -> None:
@@ -341,6 +512,27 @@ def phase_parity_bf16(n_layers: int = 4) -> None:
         cpu_drift = max(cpu_drift, (l_c - l_r).abs().max().item())
         gpu_drift = max(gpu_drift, (l_g - l_r).abs().max().item())
 
+    def check_greedy(served: dict, prompts: dict) -> tuple:
+        """Every token served for ``prompts`` ({rid: prompt}) is a greedy
+        choice of the CPU model fed the same tokens, up to two logits' worth
+        of the bf16 tolerance."""
+        exact = n = 0
+        for rid, prompt in prompts.items():
+            out = served[rid]
+            logits, cache = cpu.prefill(p_cpu, {"tokens": torch.as_tensor(prompt)[None]},
+                                        max_len)
+            for j, tok in enumerate(out):
+                row = logits[0, :v].float()
+                if row[tok] < row.max() - 2 * BF16_MODEL_TOL:
+                    raise AssertionError(f"request {rid} token {j}: the card served {tok} "
+                                         f"(CPU logit {row[tok]:.4f}), the CPU's best logit "
+                                         f"is {row.max():.4f}")
+                exact += int(tok == int(torch.argmax(row)))
+                n += 1
+                if j + 1 < len(out):
+                    logits, cache = cpu.decode_step(p_cpu, cache, torch.tensor([[tok]]))
+        return exact, n
+
     ops.reset_launch_counts()
     with torch.no_grad():
         l_g, c_g = gpu.decode_state.batched_prefill(p_gpu, {"tokens": toks.cuda()},
@@ -363,24 +555,14 @@ def phase_parity_bf16(n_layers: int = 4) -> None:
         # tokens, up to two logits' worth of the bf16 tolerance
         prompts = [rng.integers(0, v, size=n) for n in (5, 12, 17, 30, 33, 60, 70, 100)]
         served, eng = _serve(gpu, p_gpu, prompts, 8, max_batch=4, max_len=max_len)
-        exact_argmax = n_tokens = 0
-        for rid, prompt in enumerate(prompts):
-            out = served[rid]
-            logits, cache = cpu.prefill(p_cpu, {"tokens": torch.as_tensor(prompt)[None]},
-                                        max_len)
-            for j, tok in enumerate(out):
-                row = logits[0, :v].float()
-                if row[tok] < row.max() - 2 * BF16_MODEL_TOL:
-                    raise AssertionError(f"request {rid} token {j}: the card served {tok} "
-                                         f"(CPU logit {row[tok]:.4f}), the CPU's best logit "
-                                         f"is {row.max():.4f}")
-                exact_argmax += int(tok == int(torch.argmax(row)))
-                n_tokens += 1
-                if j + 1 < len(out):
-                    logits, cache = cpu.decode_step(p_cpu, cache, torch.tensor([[tok]]))
-    counts = ops.launch_counts()
-    if min(counts.values()) == 0:
-        raise AssertionError(f"bf16 parity run missed a kernel: {counts}")
+        counts = ops.launch_counts()
+        exact_argmax, n_tokens = check_greedy(served, dict(enumerate(prompts)))
+        ops.reset_launch_counts()
+        c_served, c_snap, c_prompts = chat_scenario(gpu, p_gpu, v, seed=14)
+        c_counts = ops.launch_counts()
+        c_exact, c_n = check_greedy(c_served, c_prompts)
+    check_path(counts, DENSE_PATH, "bf16 parity, dense")
+    check_path(c_counts, PAGED_PATH, "bf16 parity, paged")
     snap = eng.metrics_snapshot()
     log(f"[parity-bf16] granite geometry, d_model {cfg.d_model}, {n_layers} layers, bf16: "
         f"card vs CPU logits max |err| {worst:.4f} (tol {BF16_MODEL_TOL}); distance from an "
@@ -388,19 +570,22 @@ def phase_parity_bf16(n_layers: int = 4) -> None:
         f"served requests in {snap.prefill_dispatches} prefill dispatches, {n_tokens} "
         f"tokens all greedy choices of the CPU model ({exact_argmax} its exact argmax); "
         f"launches {counts}")
+    log(f"[parity-bf16] paged + prefix cache: {len(c_prompts)} served requests "
+        f"({c_snap.prefill_skipped} full hits, {c_snap.cow_splits} COW splits, "
+        f"{c_snap.preemptions} preemptions), {c_n} tokens all greedy choices of the CPU model "
+        f"({c_exact} its exact argmax); launches {c_counts}")
 
 
 # ---------------------------------------------------------------------------
 # phase 6: full-width granite-8b through ServeEngine
 # ---------------------------------------------------------------------------
 
-def phase_serve(results: dict, n_layers: int = 0, n_requests: int = 16,
-                max_new: int = 32) -> None:
+def full_width_model(n_layers: int = 0):
+    """granite-8b at its published widths, bf16, random weights from seed 0
+    drawn on the card: (model, params)."""
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.convert import leaves
-    from repro_torch.kernels import ops
     from repro_torch.models.api import build_model
-    from repro_torch.serving.engine import ServeEngine
     cfg = get_config("granite-8b")
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -413,6 +598,22 @@ def phase_serve(results: dict, n_layers: int = 0, n_requests: int = 16,
     log(f"[serve] granite-8b {cfg.n_layers} layers d_model {cfg.d_model}: {n_params} params "
         f"({n_params * 2 / 1e9:.2f} GB bf16) drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def add_launches(results: dict, counts: dict, path: str) -> None:
+    """Record one serving path's launch counts in the kernels' entries."""
+    for name, n in counts.items():
+        entry = results.setdefault(name, {"name": name})
+        entry.setdefault("launches_by_path", {})[path] = n
+        entry["launches"] = sum(entry["launches_by_path"].values())
+
+
+def phase_serve(results: dict, model, params, n_requests: int = 16,
+                max_new: int = 32) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+    cfg = model.cfg
     max_batch, max_len = 8, 1024
     eng = ServeEngine(model, params, max_batch=max_batch, max_len=max_len)
     rng = np.random.default_rng(0)
@@ -439,9 +640,7 @@ def phase_serve(results: dict, n_layers: int = 0, n_requests: int = 16,
                                  f"{[len(r.out_tokens) for r in done]} tokens")
         if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
             raise AssertionError("a generated token lies outside the vocabulary")
-        missed = [k for k, n in counts.items() if n == 0]
-        if missed:
-            raise AssertionError(f"the serving run never launched {missed}: {counts}")
+        check_path(counts, DENSE_PATH, "dense serving run")
         snap = eng.metrics_snapshot()
         gen_tokens = sum(len(r.out_tokens) for r in done)
         log(f"[serve] {n_requests} requests, prompts {int(lengths.min())}-{int(lengths.max())} "
@@ -483,8 +682,103 @@ def phase_serve(results: dict, n_layers: int = 0, n_requests: int = 16,
     profile_step(lambda: model.decode_state.batched_prefill(params, {"tokens": prompt}, lens,
                                                             max_len),
                  "prefill dispatch, 4 x 512 tokens")
-    for name, n in counts.items():
-        results.setdefault(name, {"name": name})["launches"] = n
+    add_launches(results, counts, "dense")
+
+
+def phase_serve_paged(results: dict, model, params) -> None:
+    """Chat traffic over the paged pool with the prefix cache: 32 greedy
+    requests, each a shared 512-token system prompt and a unique suffix of
+    16-240 tokens, max_new 32, on max_batch 16 lanes of max_len 1024; once
+    they are done, 4 repeats of the last two finished prompts (full hits,
+    each pair sharing its tail block: COW splits).  184 16-token blocks
+    (184 x 2.25 MiB = 414 MiB at granite-8b's 147,456 B of K/V a token)
+    admit all 16 lanes but not their growth, so lanes are preempted.
+    The same prompts then go through a dense engine for comparison."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    cfg = model.cfg
+    max_batch, max_len, bs, max_new, n_blocks = 16, 1024, 16, 32, 184
+    config = EngineConfig(kv_blocks=n_blocks, kv_block_size=bs, prefix_cache=True)
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab_size, size=512)
+    lens = rng.integers(16, 241, size=32)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, size=int(n))])
+               for n in lens]
+    with torch.no_grad():
+        warm = ServeEngine(model, params, max_batch=2, max_len=max_len,
+                           config=EngineConfig(kv_blocks=8, kv_block_size=bs))
+        warm.submit(rng.integers(0, cfg.vocab_size, size=20), max_new=4)
+        warm.run_until_drained()
+        del warm
+        eng = ServeEngine(model, params, max_batch=max_batch, max_len=max_len, config=config)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sent = {eng.submit(p, max_new=max_new): p for p in prompts}
+        eng.run_until_drained()
+        last = [r.rid for r in eng.finished][-2:]
+        sent.update({eng.submit(sent[rid], max_new=max_new): sent[rid]
+                     for rid in (last[0], last[0], last[1], last[1])})
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    snap = eng.metrics_snapshot()
+    if sorted(r.rid for r in done) != sorted(sent) or any(
+            len(r.out_tokens) != max_new for r in done):
+        raise AssertionError(f"{len(done)}/{len(sent)} requests finished")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
+        raise AssertionError("a generated token lies outside the vocabulary")
+    if (snap.prefix_hit_tokens <= 0 or snap.prefill_skipped < 1 or snap.cow_splits < 1
+            or snap.preemptions < 1):
+        raise AssertionError(f"paged run: prefix hit tokens {snap.prefix_hit_tokens}, full "
+                             f"hits {snap.prefill_skipped}, COW splits {snap.cow_splits}, "
+                             f"preemptions {snap.preemptions}")
+    check_path(counts, PAGED_PATH, "paged serving run")
+    if counts["paged_decode_attention"] != cfg.n_layers * eng.steps:
+        raise AssertionError(f"{counts['paged_decode_attention']} paged launches in "
+                             f"{eng.steps} decode steps of {cfg.n_layers} layers")
+    gen_tokens = sum(len(r.out_tokens) for r in done)
+    dense_positions = max_batch * max_len
+    log(f"[serve-paged] {len(sent)} chat requests (512-token shared system prompt + 16-240, "
+        f"max_new {max_new}; the last 4 repeats), max_batch {max_batch}, max_len {max_len}, "
+        f"{n_blocks} blocks of {bs}: {gen_tokens} tokens in {wall:.3f} s = "
+        f"{gen_tokens / wall:.1f} tok/s; {snap.prefill_dispatches} prefill dispatches, "
+        f"{eng.steps} decode steps")
+    log(f"[serve-paged] TTFT mean {snap.ttft.mean * 1e3:.1f} ms p95 {snap.ttft.p95 * 1e3:.1f} ms; "
+        f"TPOT mean {snap.tpot.mean * 1e3:.2f} ms; prefix hits {snap.prefix_hit_tokens} of "
+        f"{snap.prefix_query_tokens} prompt tokens; {snap.prefill_skipped} full hits, "
+        f"{snap.cow_splits} COW splits, {snap.preemptions} preemptions, {snap.resumes} resumes, "
+        f"{snap.cache_evictions} evictions")
+    log(f"[serve-paged] KV blocks peak {snap.kv_blocks_peak} ({snap.kv_blocks_peak * bs} "
+        f"positions) against the {dense_positions} positions ({dense_positions // bs} blocks) "
+        f"dense lanes hold; shared blocks peak {snap.kv_shared_blocks_peak}; launches {counts}")
+    # the same prompts over dense lanes: tokens agree unless the two decode
+    # kernels' different summation orders tip a bf16 argmax
+    with torch.no_grad():
+        dense = ServeEngine(model, params, max_batch=max_batch, max_len=max_len)
+        for p in sent.values():
+            dense.submit(p, max_new=max_new)
+        ref = {r.rid: r.out_tokens for r in dense.run_until_drained()}   # same rids
+    same = sum(a == b for r in done for a, b in zip(r.out_tokens, ref[r.rid]))
+    same_req = sum(r.out_tokens == ref[r.rid] for r in done)
+    log(f"[serve-paged] against a dense run of the same prompts: {same} of {gen_tokens} tokens "
+        f"agree position by position, {same_req} of {len(done)} requests identical")
+    add_launches(results, counts, "paged")
+    # where a paged step's time goes: 16 busy lanes behind the shared prompt
+    # (612 positions each), whole engine steps (lane preparation, table
+    # upload, decode, sampling)
+    with torch.no_grad():
+        for _ in range(max_batch):
+            eng.submit(np.concatenate([system, rng.integers(0, cfg.vocab_size, size=100)]),
+                       max_new=16)
+        for _ in range(6):                 # admission packs the pool's free budget
+            if eng.active() == max_batch:
+                break
+            eng.step()
+        if eng.active() != max_batch or eng.metrics_snapshot().preemptions != snap.preemptions:
+            raise AssertionError(f"{eng.active()} of {max_batch} lanes busy")
+        profile_step(eng.step, f"paged engine step, batch {max_batch}, 612 positions a lane")
 
 
 def time_sampler(logits: torch.Tensor, n_lanes: int, iters: int = 10) -> dict:
@@ -548,7 +842,7 @@ def main(argv=None) -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch.kernels import ops  # fails outside a checkout
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -565,9 +859,15 @@ def main(argv=None) -> int:
         phase_parity()
     if "parity_bf16" in phases:
         phase_parity_bf16()
+    full = None
     if "serve" in phases:
-        phase_serve(results)
+        full = full_width_model()
+        phase_serve(results, *full)
+    if "serve_paged" in phases:
+        phase_serve_paged(results, *(full or full_width_model()))
     kernels = [dict(r, launches=r.get("launches")) for r in results.values()]
+    if "kernels" in phases and len(kernels) != len(ops.launch_counts()):
+        raise AssertionError(f"kernels line lists {[k['name'] for k in kernels]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

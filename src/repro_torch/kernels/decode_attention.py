@@ -5,7 +5,8 @@ The kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
 bytes (a stream over the live K/V), and at serving batch one CTA per
 (lane, KV head) would leave half the SMs idle, so the span is split
 (flash-decoding) and the slices are merged by the last CTA of each
-(lane, KV head) in the same launch.  :func:`decode_attention_plain` ports
+(lane, KV head) in the same launch (the body is shared with the paged
+kernel, ``csrc/decode_body.cuh``).  :func:`decode_attention_plain` ports
 ``repro/kernels/ref.py::decode_attention_ref``.
 """
 
@@ -58,7 +59,8 @@ def split_plan(b: int, g: int, s: int, n_sms: int) -> Tuple[int, int]:
 def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                           valid: torch.Tensor, scale: float) -> torch.Tensor:
     """Same contract as :func:`decode_attention_plain`, on a CUDA device.
-    A lane whose ``valid`` row is all False returns zeros."""
+    A lane whose ``valid`` row is all False returns the mean of V over the
+    span, as the TPU kernel's finite mask gives (uniform softmax)."""
     global launches
     b, one, h, d = q.shape
     s, g = ck.shape[1], ck.shape[2]

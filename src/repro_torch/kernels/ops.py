@@ -17,9 +17,11 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rmsnorm as _rms
 
-_COUNTED = {"flash_attention": _fa, "decode_attention": _dec, "rmsnorm": _rms}
+_COUNTED = {"flash_attention": _fa, "decode_attention": _dec,
+            "paged_decode_attention": _paged, "rmsnorm": _rms}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -41,6 +43,16 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     if _on_cpu(q):
         return _dec.decode_attention_plain(q, ck, cv, valid, scale)
     return _dec.decode_attention_cuda(q, ck, cv, valid, scale)
+
+
+def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                           block_tables: torch.Tensor, pos: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    """q (B,1,H,D), kp/vp (NB,bs,G,D) block pool, block_tables (B,max_blocks)
+    int32, pos (B,) int32 last attended position -> (B,1,H,D)."""
+    if _on_cpu(q):
+        return _paged.paged_decode_attention_plain(q, kp, vp, block_tables, pos, scale)
+    return _paged.paged_decode_attention_cuda(q, kp, vp, block_tables, pos, scale)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -7,7 +7,9 @@
 
 ``model.decode_state`` (a :class:`DecodeState`) tells the serving backends
 what the decode state supports; ``batched_prefill`` is set only where
-right-padding is provably inert (full causal attention).
+right-padding is provably inert (full causal attention), and the block-pool
+pair ``pool_init`` / ``pool_step`` only where the decode state is a
+position-addressed K/V cache (full attention).
 """
 
 from __future__ import annotations
@@ -26,12 +28,26 @@ from repro_torch.models.blocks import require_dense
 class DecodeState:
     """``kind`` is the state taxonomy ("attention" for every family the port
     serves); ``batched_prefill(params, batch, lengths, max_len)`` is the
-    right-padded bucketed prefill, or None where padding would leak."""
+    right-padded bucketed prefill, or None where padding would leak.
+
+    ``pool_init(n_lanes, n_blocks, block_size)`` / ``pool_step(params,
+    cache, tokens, block_tables)`` are the paged layout's cache constructor
+    and decode step (:func:`repro_torch.models.lm.init_pool_cache` /
+    :func:`~repro_torch.models.lm.lm_decode_step_pool`); ``poolable`` says
+    whether they exist."""
 
     kind: str
     batched_prefill: Optional[
         Callable[[dict, Dict[str, torch.Tensor], torch.Tensor, int],
                  Tuple[torch.Tensor, dict]]] = None
+    pool_init: Optional[Callable[[int, int, int], dict]] = None
+    pool_step: Optional[
+        Callable[[dict, dict, torch.Tensor, torch.Tensor],
+                 Tuple[torch.Tensor, dict]]] = None
+
+    @property
+    def poolable(self) -> bool:
+        return self.pool_step is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +84,20 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
         gen = torch.Generator(device=device).manual_seed(seed)
         return LM.init_lm(cfg, gen, dt)
 
-    batched = None
+    # right-padded batched prefill and the block pool are both exact only
+    # for full causal attention (the reference's ragged_ok / pool_ok gates,
+    # restricted to the dense family the port builds): chunked_local's ring
+    # buffer is dense-span specific
+    batched = pool_init = pool_step = None
     if cfg.attention == "full":
         def batched(p, b, ln, ml):
             return LM.lm_prefill_padded(cfg, p, b, ln, rcfg, ml)
+
+        def pool_init(nl, nb, bs):
+            return LM.init_pool_cache(cfg, nl, nb, bs, dt, device)
+
+        def pool_step(p, c, t, bt):
+            return LM.lm_decode_step_pool(cfg, p, c, t, bt, rcfg)
 
     return Model(
         cfg=cfg, rcfg=rcfg, device=device,
@@ -80,5 +106,6 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
         prefill=lambda p, b, ml: LM.lm_prefill(cfg, p, b, rcfg, ml),
         decode_step=lambda p, c, t: LM.lm_decode_step(cfg, p, c, t, rcfg),
         init_cache=lambda bsz, ml: LM.init_cache(cfg, bsz, ml, dt, device),
-        decode_state=DecodeState(kind="attention", batched_prefill=batched),
+        decode_state=DecodeState(kind="attention", batched_prefill=batched,
+                                 pool_init=pool_init, pool_step=pool_step),
     )

@@ -1,11 +1,14 @@
-"""GQA self-attention with a dense KV cache (port of ``repro/models/attention.py``).
+"""GQA self-attention with a dense or paged KV cache (port of
+``repro/models/attention.py``).
 
-Prefill attention always goes through ``ops.flash_attention`` and decode
-attention through ``ops.decode_attention``: on CUDA tensors they launch the
+Prefill attention always goes through ``ops.flash_attention``, dense decode
+attention through ``ops.decode_attention`` and paged decode attention
+through ``ops.paged_decode_attention``: on CUDA tensors they launch the
 Hopper kernels, on CPU tensors they run the kernels' plain versions.  The
 reference's ``RunConfig.use_kernels`` switch has no effect here (the device
 decides), so nothing on the card can reach a plain version.  Layouts: q
-``(B,T,H,D)``, k/v ``(B,T,G,D)``, caches ``(B,span,G,D)`` per layer.
+``(B,T,H,D)``, k/v ``(B,T,G,D)``, dense caches ``(B,span,G,D)`` and block
+pools ``(NB,bs,G,D)`` per layer.
 """
 
 from __future__ import annotations
@@ -126,6 +129,51 @@ def decode_attn(params: dict, cfg: ModelConfig, x: torch.Tensor, ck: torch.Tenso
     ck.view(b * span, *ck.shape[2:]).index_copy_(0, rows, k[:, 0].to(ck.dtype))
     cv.view(b * span, *cv.shape[2:]).index_copy_(0, rows, v[:, 0].to(cv.dtype))
     out = ops.decode_attention(q, ck.to(q.dtype), cv.to(q.dtype), valid, cfg.head_dim ** -0.5)
+    return out.reshape(b, 1, cfg.q_dim) @ params["wo"]
+
+
+def paged_slots(pos: torch.Tensor, block_tables: torch.Tensor,
+                block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where this step's K/V go in a block pool and which positions it
+    attends, shared by every layer of a paged decode step: (row of each
+    lane's write slot in the (NB*bs, ...) flattened pool, ``p_eff`` (B,)
+    int32, the last position each lane attends).
+
+    ``p_eff = min(pos, span - 1)`` saturates like the dense path, with
+    ``span = max_blocks * bs`` a lane's logical capacity; position ``p_eff``
+    lives at ``block_tables[lane, p_eff // bs] * bs + p_eff % bs``."""
+    span = block_tables.shape[1] * block_size
+    p_eff = torch.clamp(pos, max=span - 1).to(torch.int32)
+    lane = torch.arange(pos.shape[0], device=pos.device)
+    blk = block_tables[lane, (p_eff // block_size).long()].long()
+    return blk * block_size + (p_eff % block_size).long(), p_eff
+
+
+def decode_attn_paged(params: dict, cfg: ModelConfig, x: torch.Tensor, kp: torch.Tensor,
+                      vp: torch.Tensor, rope: Rope, rows: torch.Tensor,
+                      block_tables: torch.Tensor, p_eff: torch.Tensor) -> torch.Tensor:
+    """One-token decode for one layer against a PAGED KV pool.
+
+    x: (B,1,D); kp/vp: (NB,bs,KVH,Dh), this layer's block pool (block 0 is
+    the sink); block_tables: (B, max_blocks) int32 pool block ids per lane;
+    ``rope`` the tables of the lanes' positions, ``rows`` / ``p_eff`` from
+    :func:`paged_slots`.  Writes this token's K/V into ``kp``/``vp`` IN
+    PLACE (where the reference returns updated pools), then attends over
+    each lane's positions ``0..p_eff``.  Returns the attention output (B,1,D).
+
+    Live lanes own disjoint blocks, so their writes never collide; idle
+    lanes (all-sink tables) all write into the sink, where ``index_copy_``
+    with repeated rows leaves one of them -- harmless, because no live lane
+    ever reads the sink.
+    """
+    b = x.shape[0]
+    q, k, v = _proj_qkv(params, x, x, cfg)
+    q, k = rotate(q, rope), rotate(k, rope)
+    n_rows = kp.shape[0] * kp.shape[1]
+    kp.view(n_rows, *kp.shape[2:]).index_copy_(0, rows, k[:, 0].to(kp.dtype))
+    vp.view(n_rows, *vp.shape[2:]).index_copy_(0, rows, v[:, 0].to(vp.dtype))
+    out = ops.paged_decode_attention(q, kp.to(q.dtype), vp.to(q.dtype), block_tables, p_eff,
+                                     cfg.head_dim ** -0.5)
     return out.reshape(b, 1, cfg.q_dim) @ params["wo"]
 
 

@@ -3,9 +3,11 @@
     init_block(gen, cfg, dtype)                      -> one layer's params
     block_prefill(cfg, bp, x, rope, span)                 -> (x, {"k", "v"})
     block_decode(cfg, bp, x, ck, cv, rope, rows, valid)   -> x  (ck/cv in place)
+    block_decode_paged(cfg, bp, x, kp, vp, rope, rows, block_tables, p_eff)
+                                                          -> x  (kp/vp in place)
 
-``rope`` / ``rows`` / ``valid`` depend only on positions, so the assembly
-computes them once per forward for all layers.
+``rope`` / ``rows`` / ``valid`` / ``p_eff`` depend only on positions, so the
+assembly computes them once per forward for all layers.
 
 The layer-stacked cache is allocated whole by
 :func:`repro_torch.models.attention.init_kv_cache`, so the reference's
@@ -57,4 +59,14 @@ def block_decode(cfg: ModelConfig, bp: dict, x: torch.Tensor, ck: torch.Tensor,
     """One-token step of one layer; writes this token's K/V into ck/cv in place."""
     x = x + attn.decode_attn(bp["attn"], cfg, rmsnorm(bp["ln1"], x), ck, cv, rope, rows,
                              valid)
+    return x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
+
+
+def block_decode_paged(cfg: ModelConfig, bp: dict, x: torch.Tensor, kp: torch.Tensor,
+                       vp: torch.Tensor, rope: attn.Rope, rows: torch.Tensor,
+                       block_tables: torch.Tensor, p_eff: torch.Tensor) -> torch.Tensor:
+    """One-token step of one layer against a paged KV pool; writes this
+    token's K/V into kp/vp in place."""
+    x = x + attn.decode_attn_paged(bp["attn"], cfg, rmsnorm(bp["ln1"], x), kp, vp, rope, rows,
+                                   block_tables, p_eff)
     return x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)

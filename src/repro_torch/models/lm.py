@@ -7,9 +7,10 @@ Params::
      "final_ln": {"scale": (D,)},
      "head": {"w": (D, Vp)}}                  # absent when tied
 
-Cache (decode)::
+Cache (decode), dense lanes or a block pool::
 
     {"layers": {"k": (L, B, span, KVH, Dh), "v": ...}, "pos": (B,) int32}
+    {"layers": {"k": (L, NB + 1, bs, KVH, Dh), "v": ...}, "pos": (B,) int32}
 
 Decode writes each step's K/V into ``cache["layers"]`` IN PLACE (the
 reference donates the buffers to jit instead) and returns a cache dict with
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import blocks as B
-from repro_torch.models.attention import cache_span, decode_slots, init_kv_cache
+from repro_torch.models.attention import cache_span, decode_slots, init_kv_cache, paged_slots
 from repro_torch.models.common import (embed_tokens, init_embed, init_head, init_rmsnorm,
                                        rmsnorm, rope_tables)
 
@@ -115,8 +116,42 @@ def lm_decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Te
     return logits, {"layers": cache["layers"], "pos": pos + 1}
 
 
+def lm_decode_step_pool(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
+                        block_tables: torch.Tensor,
+                        rcfg: RunConfig) -> Tuple[torch.Tensor, dict]:
+    """One decode step against a block-pooled (paged) KV cache.
+
+    cache: {"layers": {"k"/"v": (L, NB+1, bs, KVH, Dh)}, "pos": (B,)};
+    block_tables: (B, max_blocks) int32 pool block ids (0 = sink), on the
+    cache's device.  tokens: (B, 1) int.  Returns (logits (B, Vp), cache);
+    the pools of ``cache["layers"]`` are updated in place."""
+    cdt = dtype_of(rcfg.compute_dtype)
+    x = embed_tokens(params["embed"], tokens, cdt)
+    pos = cache["pos"]
+    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    rows, p_eff = paged_slots(pos, block_tables, ks.shape[2])
+    for i, bp in enumerate(params["blocks"]):
+        x = B.block_decode_paged(cfg, bp, x, ks[i], vs[i], rope, rows, block_tables, p_eff)
+    x = rmsnorm(params["final_ln"], x)
+    logits = head_logits(cfg, params, x[:, -1])
+    return logits, {"layers": cache["layers"], "pos": pos + 1}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                device) -> dict:
     B.require_dense(cfg)
     return {"layers": init_kv_cache(cfg, batch, max_len, dtype, device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def init_pool_cache(cfg: ModelConfig, n_lanes: int, n_blocks: int, block_size: int,
+                    dtype: torch.dtype, device) -> dict:
+    """Pooled KV cache: ``n_blocks`` usable blocks + 1 sink (block id 0),
+    sized by live tokens rather than lanes x worst-case length; per-lane
+    block tables (backend-owned) map logical positions to pool slots."""
+    B.require_dense(cfg)
+    shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)},
+            "pos": torch.zeros((n_lanes,), dtype=torch.int32, device=device)}

@@ -5,8 +5,18 @@ Slots: a fixed ``max_batch`` of cache lanes; queued requests are admitted
 into free lanes by a pluggable :mod:`scheduler` policy, decode advances
 every active lane one token per step, and finished lanes free at once
 (continuous batching).  Decode state lives behind one
-:class:`~repro_torch.serving.backends.CacheBackend`; the port has the dense
-layout (one ``max_len``-wide lane per slot).
+:class:`~repro_torch.serving.backends.CacheBackend`, picked by
+:func:`~repro_torch.serving.backends.make_backend`:
+
+* **dense** -- one ``max_len``-wide cache lane per slot.
+* **paged** (``EngineConfig.kv_blocks``) -- a shared pool of fixed-size KV
+  blocks; admission allocates just the blocks a prompt needs, decode grows
+  tables one block at a time, and exhaustion PREEMPTS the most recently
+  admitted lane (LIFO / recompute policy), which later resumes
+  token-identically.  With ``EngineConfig.prefix_cache`` the pool becomes
+  content-addressed: full prompt blocks are shared copy-on-write across
+  lanes, admission charges only unique blocks, and a fully-cached prompt
+  skips its prefill dispatch outright.
 
 Prefill is **bucketed and batched**: prompts are right-padded to a small set
 of length buckets and several admissions share one batched-prefill call
@@ -34,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.api import Model
-from repro_torch.serving.backends import make_backend
+from repro_torch.serving.backends import INFEASIBLE, Reservation, make_backend
 from repro_torch.serving.metrics import EngineSnapshot, MetricsCollector
 from repro_torch.serving.sampling import GREEDY, Sampler, SamplingParams
 from repro_torch.serving.scheduler import AdmissionScheduler, SchedulerConfig
@@ -47,11 +57,27 @@ class EngineConfig:
     ``pad_id`` fills the right-pad region of bucketed prefill batches.  The
     padded positions are causally masked out of every real token, so any id
     inside the vocab is correct; it is configurable so that vocabularies
-    where 0 is a live token can pick an unambiguous filler.  The paged
-    layout's knobs (``kv_blocks``, ``prefix_cache``, ...) arrive with the
-    paged backend.
+    where 0 is a live token can pick an unambiguous filler.
+
+    ``kv_blocks`` switches the model to the paged backend: a pool of that
+    many usable ``kv_block_size``-token blocks shared by all lanes (plus an
+    internal sink block).  ``watermark_frac`` of the pool is held back from
+    admission as headroom for decode-time growth -- 0 admits greedily and
+    relies purely on preemption.
+
+    ``prefix_cache`` (paged only) turns on refcounted copy-on-write prompt
+    sharing: identical prompt prefixes are admitted against the SAME
+    physical blocks, and fully-cached prompts skip prefill.
+
+    ``backend`` forces a cache layout (``"dense" | "paged"``) instead of the
+    automatic choice -- chiefly for tests and A/B runs.
     """
     pad_id: int = 0
+    kv_blocks: Optional[int] = None
+    kv_block_size: int = 16
+    watermark_frac: float = 0.0
+    prefix_cache: bool = False
+    backend: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -72,6 +98,9 @@ class Request:
     # PRNG counter frozen at preemption so a stochastic request resumes on
     # exactly the sample stream it would have continued on
     saved_key: Optional[np.ndarray] = None
+    # (out_len, backend.state_version, value) -- memoized admission
+    # footprint, so a queued request isn't re-hashed every engine step
+    fp_memo: Optional[Tuple[int, int, int]] = None
 
 
 def default_buckets(max_len: int, smallest: int = 16) -> Tuple[int, ...]:
@@ -124,9 +153,9 @@ class ServeEngine:
         self.steps = 0
         self.finished: List[Request] = []
 
-        # ALL decode state lives here
-        self.backend = make_backend(model, max_batch, max_len)
-        self.metrics = MetricsCollector(n_slots=max_batch)
+        # ALL decode state (layout, growth, sharing) lives here
+        self.backend = make_backend(model, max_batch, max_len, self.config)
+        self.metrics = MetricsCollector(n_slots=max_batch, n_blocks=self.backend.n_blocks)
 
         self._device = model.device
         batched = model.decode_state.batched_prefill
@@ -173,7 +202,10 @@ class ServeEngine:
         """Admit an externally-built Request (fleet routing / migration).
 
         ``force`` bypasses ``max_queue`` — a migrated request already owes a
-        client tokens and must never be dropped at the door."""
+        client tokens and must never be dropped at the door.  The footprint
+        memo is invalidated: it was computed against another engine's
+        backend state (versions are per-backend and can collide)."""
+        req.fp_memo = None
         # keep locally-generated rids unique if submit() and inject() mix
         self._rid = max(self._rid, req.rid + 1)
         if force:
@@ -196,8 +228,8 @@ class ServeEngine:
 
     def lane_cost(self, slot: int) -> Tuple[int, int]:
         """(recompute_tokens, footprint) of an active lane — the fleet's
-        cost-aware migration victim ordering.  A dense lane resumes by a
-        re-prefill of its full context."""
+        cost-aware migration victim ordering.  Dense and paged lanes both
+        resume by a re-prefill of their full context."""
         req = self.slots[slot]
         if req is None:
             raise ValueError(f"lane {slot} is idle: no cost to report")
@@ -210,6 +242,14 @@ class ServeEngine:
             return req.prompt
         return np.concatenate(
             [req.prompt, np.asarray(req.out_tokens, np.int32)])
+
+    def _cache_tokens(self, req: Request) -> Optional[np.ndarray]:
+        """Token content backing the request's cache positions, or None
+        when positions aren't pure tokens (frontend rows / extra inputs) —
+        such requests can neither hit nor feed the prefix cache."""
+        if req.extra:
+            return None
+        return self._prefill_tokens(req)
 
     def _ctx_len(self, req: Request) -> int:
         """Cache positions the prefill will occupy (frontend rows included)."""
@@ -225,8 +265,18 @@ class ServeEngine:
         return self._ctx_len(req) - len(req.out_tokens) + req.max_new - 1
 
     def _footprint(self, req: Request) -> int:
-        """Admission footprint: the cache positions the backend holds for it."""
-        return self.backend.token_footprint(self._ctx_len(req), req.max_new)
+        """Admission footprint, memoized against the backend's state
+        version — without this, footprint-aware pops would re-hash every
+        queued prompt (prefix-cache match) on every engine step."""
+        ver = self.backend.state_version
+        out_len = len(req.out_tokens)
+        m = req.fp_memo
+        if m is not None and m[0] == out_len and m[1] == ver:
+            return m[2]
+        v = self.backend.token_footprint(self._ctx_len(req), req.max_new,
+                                         self._cache_tokens(req))
+        req.fp_memo = (out_len, ver, v)
+        return v
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.as_tensor(a)
@@ -242,18 +292,22 @@ class ServeEngine:
         # not one per distinct prompt length)
         return self.max_len
 
-    def _admit_group(self, items: List[Request], slots: List[int], logits,
-                     group_cache, now: float) -> None:
-        """Sample all first tokens in ONE dispatch, then paste each lane."""
+    def _admit_group(self, items: List[Tuple[Request, Reservation]],
+                     slots: List[int], logits, group_cache, now: float,
+                     widths: List[int]) -> None:
+        """Sample all first tokens in ONE dispatch, then paste each lane.
+        ``widths[j]`` is the prefill width request j was padded to (its
+        bucket length, or its exact context length on the fallback path)."""
         ls = self.lane_sampling
-        for req, slot in zip(items, slots):
+        for (req, _), slot in zip(items, slots):
             ls.set_lane(slot, req.sampling)
             if req.saved_key is not None:     # resume: continue the stream
                 ls.key[slot] = req.saved_key
         toks = self.sampler.sample(logits[:, :self.vocab],
                                    lanes=np.asarray(slots))
         t_first = self._now()
-        for j, (req, slot) in enumerate(zip(items, slots)):
+        for j, ((req, res), slot) in enumerate(zip(items, slots)):
+            n_ctx = self._ctx_len(req)
             tok = int(toks[j])
             req.out_tokens.append(tok)
             if req.admitted_t is None:
@@ -263,14 +317,19 @@ class ServeEngine:
                 self.metrics.on_resume(req, now)
             req.admitted_t = now
             req.saved_key = None
+            # paste EVERY admission — even one that finishes right here —
+            # so blocks the reservation registered in the prefix cache
+            # hold real content before anyone prefix-matches them
+            self.backend.prefill_paste(slot, group_cache, j, n_ctx,
+                                       widths[j], res)
             if len(req.out_tokens) >= req.max_new or tok == self.eos_id:
                 # finished at admission: never occupies a decode lane
                 req.done_t = t_first
                 ls.clear_lane(slot)
+                self.backend.release(slot, tokens=self._cache_tokens(req))
                 self.finished.append(req)
                 self.metrics.on_finish(req, t_first)
                 continue
-            self.backend.prefill_paste(slot, group_cache, j)
             self.slots[slot] = req
 
     def _admit(self) -> None:
@@ -285,33 +344,59 @@ class ServeEngine:
         if not free:
             return False
         now = self._now()
-        batch = self.scheduler.pop(len(free), now)
+        batch = self.scheduler.pop(
+            len(free), now, footprint=self._footprint,
+            budget=self.backend.budget_tokens,
+            capacity=self.backend.capacity_tokens)
         if not batch:
             return False
         n_done_before = len(self.finished)
 
-        # dense lanes hold any request (the lane count bounds admission), so
-        # every popped request is prefilled: batched-bucketed where exact,
-        # else at its exact length
-        batched: List[Request] = []
-        fallback: List[Request] = []
-        for req in batch:
+        # reserve capacity per request (allocate-on-admit): reject what can
+        # never fit, spill what can't fit NOW back to the queue
+        held: List[Tuple[Request, Reservation]] = []
+        for i, req in enumerate(batch):
+            res = self.backend.alloc(self._ctx_len(req), self._final_len(req),
+                                     self._cache_tokens(req))
+            if res is INFEASIBLE:
+                self.scheduler.reject(req)
+                continue
+            if res is None:
+                for r in batch[i:]:
+                    self.scheduler.requeue(r)
+                break
+            held.append((req, res))
+
+        # split: full cache hits skip prefill wholly; the rest go through
+        # batched-bucketed or exact-length prefill
+        batched: List[Tuple[Request, Reservation]] = []
+        fallback: List[Tuple[Request, Reservation]] = []
+        for req, res in held:
+            if res.n_lookup:
+                self.metrics.on_prefix_lookup(res.n_cached, res.n_lookup)
+            if res.full_hit:
+                slot = free.pop(0)
+                self.backend.activate(slot, res, self._ctx_len(req))
+                self._resume_lane(req, slot, now)
+                self.metrics.on_prefill_skip()
+                continue
             ok = (self._prefill_n is not None and not req.extra
                   and self._ctx_len(req) <= self.max_len)
-            (batched if ok else fallback).append(req)
+            (batched if ok else fallback).append((req, res))
 
         # group eligible requests by padded bucket length, then chunk each
         # group to the prefill batch limit -> one dispatch per chunk
         groups = {}
-        for req in batched:
-            groups.setdefault(self._bucket_len(self._ctx_len(req)), []).append(req)
+        for req, res in batched:
+            groups.setdefault(self._bucket_len(self._ctx_len(req)),
+                              []).append((req, res))
         for blen, items in sorted(groups.items()):
             for i in range(0, len(items), self.max_prefill_batch):
                 chunk = items[i:i + self.max_prefill_batch]
                 toks = np.full((len(chunk), blen), self.config.pad_id,
                                np.int32)
                 lens = np.zeros((len(chunk),), np.int32)
-                for j, req in enumerate(chunk):
+                for j, (req, _) in enumerate(chunk):
                     seq = self._prefill_tokens(req)
                     toks[j, :len(seq)] = seq
                     lens[j] = len(seq)
@@ -319,21 +404,39 @@ class ServeEngine:
                     self.params, self._to_device(toks), self._to_device(lens))
                 self.metrics.on_prefill(len(chunk), blen * len(chunk))
                 slots = [free.pop(0) for _ in chunk]
-                self._admit_group(chunk, slots, logits, group_cache, now)
-        for req in fallback:
+                self._admit_group(chunk, slots, logits, group_cache, now,
+                                  widths=[blen] * len(chunk))
+        for req, res in fallback:
             seq = self._prefill_tokens(req)
             b = {"tokens": self._to_device(seq[None])}
             for k, v in req.extra.items():
                 b[k] = self._to_device(np.asarray(v)[None])
             logits, one_cache = self.model.prefill(self.params, b, self.max_len)
             self.metrics.on_prefill(1, self._ctx_len(req))
-            self._admit_group([req], [free.pop(0)], logits, one_cache, now)
+            self._admit_group([(req, res)], [free.pop(0)], logits, one_cache,
+                              now, widths=[self._ctx_len(req)])
 
         return (len(self.finished) > n_done_before
                 and self.scheduler.depth > 0)
 
+    def _resume_lane(self, req: Request, slot: int, now: float) -> None:
+        """Place a request on a lane WITHOUT a prefill dispatch (full
+        prefix hit); its next token is produced by the next decode step,
+        which feeds the last context token."""
+        ls = self.lane_sampling
+        ls.set_lane(slot, req.sampling)
+        if req.saved_key is not None:
+            ls.key[slot] = req.saved_key
+        if req.admitted_t is None:
+            self.metrics.on_admit(req, now)
+        else:
+            self.metrics.on_resume(req, now)
+        req.admitted_t = now
+        req.saved_key = None
+        self.slots[slot] = req
+
     # ------------------------------------------------------------------
-    # preemption
+    # growth / preemption
     # ------------------------------------------------------------------
     def _pick_victim(self) -> int:
         """LIFO (recompute) policy: preempt the most recently admitted lane
@@ -359,7 +462,7 @@ class ServeEngine:
             raise ValueError(f"lane {slot} is idle: nothing to preempt")
         req.preemptions += 1
         req.saved_key = self.lane_sampling.key[slot].copy()
-        self.backend.release(slot)
+        self.backend.release(slot, tokens=self._cache_tokens(req))
         self.slots[slot] = None
         self.lane_sampling.clear_lane(slot)
         if requeue:
@@ -371,9 +474,11 @@ class ServeEngine:
         """Release a lane whose DEVICE is gone (worker death): free the
         host-side bookkeeping without touching device state.  Unlike
         :meth:`preempt` it saves no sampling key (the lane's device is
-        unreachable).  Returns the request for the failover plane, which
-        restores ``saved_key`` from its last lane checkpoint before
-        re-injecting it elsewhere."""
+        unreachable) and registers no token content into the prefix cache
+        (K/V that died with the device must never be offered as a cache
+        hit).  Returns the request for the failover plane, which restores
+        ``saved_key`` from its last lane checkpoint before re-injecting it
+        elsewhere."""
         req = self.slots[slot]
         if req is None:
             raise ValueError(f"lane {slot} is idle: nothing to forget")
@@ -384,6 +489,20 @@ class ServeEngine:
         self.metrics.on_preempt(req)
         return req
 
+    def _prepare_lanes(self) -> None:
+        """Before a decode step, every active lane must have a writable
+        private block at its next position (grow / COW-split / uncache —
+        see ``CacheBackend.prepare_lane``); exhaustion preempts victims
+        (possibly the needy lane itself) until it frees."""
+        for slot in range(self.max_batch):
+            if self.slots[slot] is None:
+                continue
+            while not self.backend.prepare_lane(slot):
+                victim = self._pick_victim()
+                self.preempt(victim)
+                if victim == slot:
+                    break
+
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
@@ -392,13 +511,26 @@ class ServeEngine:
 
     def step(self) -> int:
         """Admit + one decode step for all active lanes. Returns #active."""
+        # grow RUNNING lanes before admission takes the last free blocks —
+        # else a fresh admission pays a whole prefill only to be the LIFO
+        # victim of an older lane's growth this same step
+        self._prepare_lanes()
         self._admit()
+        # second pass covers lanes admitted above whose context ends
+        # exactly on a block boundary, plus full-hit lanes whose first
+        # write lands in a shared block (COW split)
+        self._prepare_lanes()
         if self.active() == 0:
             return 0
         toks = np.zeros((self.max_batch, 1), np.int32)
         for i, req in enumerate(self.slots):
-            if req is not None:
-                toks[i, 0] = req.out_tokens[-1]     # the lane's last sampled token
+            if req is None:
+                continue
+            # normally the lane's last sampled token; a lane admitted
+            # without prefill (full hit) re-feeds its last context token to
+            # produce the next logits
+            toks[i, 0] = req.out_tokens[-1] if req.out_tokens \
+                else req.prompt[-1]
         active = np.asarray([s is not None for s in self.slots])
         logits = self.backend.step(self.params, toks, active)
         ls = self.lane_sampling
@@ -413,15 +545,18 @@ class ServeEngine:
                 continue
             tok = nxt[i]
             req.out_tokens.append(tok)
+            if req.first_token_t is None:   # prefill-skipping admissions
+                req.first_token_t = now
             if len(req.out_tokens) >= req.max_new or tok == self.eos_id:
                 req.done_t = now
                 self.slots[i] = None                # lane freed immediately
                 ls.clear_lane(i)
-                self.backend.release(i)
+                self.backend.release(i, tokens=self._cache_tokens(req))
                 self.finished.append(req)
                 self.metrics.on_finish(req, now)
         self.steps += 1
-        self.metrics.on_step(self.scheduler.depth, busy, now)
+        self.metrics.on_step(self.scheduler.depth, busy, now,
+                             blocks_in_use=self.backend.blocks_in_use)
         return self.active()
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:
@@ -456,10 +591,16 @@ class ServeEngine:
         self.scheduler.rejected_total = 0
         self.scheduler.expired_total = 0
         self.steps = 0
-        self.metrics = MetricsCollector(n_slots=self.max_batch)
+        self.metrics = MetricsCollector(n_slots=self.max_batch,
+                                        n_blocks=self.backend.n_blocks)
+        self.backend.reset_counters()
 
     def metrics_snapshot(self) -> EngineSnapshot:
         return self.metrics.snapshot(
             queue_depth_now=self.scheduler.depth,
             rejected=self.scheduler.rejected_total,
-            expired=self.scheduler.expired_total)
+            expired=self.scheduler.expired_total,
+            kv_blocks_peak=self.backend.peak_blocks,
+            kv_shared_blocks_peak=self.backend.shared_blocks_peak,
+            cow_splits=self.backend.cow_splits,
+            cache_evictions=self.backend.cache_evictions)

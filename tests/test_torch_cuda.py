@@ -10,6 +10,7 @@ import torch
 from repro_torch.kernels import decode_attention as kdec
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import rmsnorm as krms
 
 # |kernel - plain| <= tol * max(1, |plain|): fp32 differs only in summation
@@ -87,6 +88,71 @@ def test_decode_kernel(cuda_device, dtype, b, h, g, d, span):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("span", [64, 300, 1024])
+def test_decode_kernel_empty_lane_is_mean_of_v(cuda_device, dtype, span):
+    """A lane with no valid position returns the mean of V over the span
+    (the TPU kernel's finite mask makes its softmax uniform)."""
+    b, h, g, d = 3, 32, 8, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(span + 1)
+    q, ck, cv = _rand(gen, dtype, b, 1, h, d), _rand(gen, dtype, b, span, g, d), \
+        _rand(gen, dtype, b, span, g, d)
+    valid = torch.arange(span, device=cuda_device)[None] <= torch.tensor(
+        [[span // 2], [-1], [0]], device=cuda_device)
+    got = kdec.decode_attention_cuda(q, ck, cv, valid, d ** -0.5)
+    _assert_close(got, kdec.decode_attention_plain(q, ck, cv, valid, d ** -0.5), dtype)
+    mean_v = cv[1].float().mean(0).repeat_interleave(h // g, dim=0)        # (H, D)
+    _assert_close(got[1, 0], mean_v, dtype)
+
+
+def _paged_inputs(gen, dtype, b, h, g, d, bs, max_blocks, pos):
+    """A pool with the sink (block 0) random too, per-lane tables of
+    distinct blocks drawn from a permutation, lane 1 sharing lane 0's first
+    block, sink entries past each lane's blocks."""
+    dev = gen.device
+    nb = 1 + b * max_blocks
+    q = _rand(gen, dtype, b, 1, h, d)
+    kp, vp = _rand(gen, dtype, nb, bs, g, d), _rand(gen, dtype, nb, bs, g, d)
+    perm = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).tolist()
+    tables = torch.zeros((b, max_blocks), dtype=torch.int32)
+    for lane, p in enumerate(pos):
+        n = min(p, max_blocks * bs - 1) // bs + 1
+        tables[lane, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    if b > 1:
+        tables[1, 0] = tables[0, 0]
+    return q, kp, vp, tables.to(dev), torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,g,d,bs,max_blocks,pos", [
+    (3, 8, 2, 32, 8, 4, [9, 30, 0]),
+    (2, 4, 4, 128, 16, 3, [15, 32]),
+    (4, 8, 2, 64, 4, 5, [19, 3, 12, 8]),
+    (16, 32, 8, 128, 16, 64, [16 + 63 * i for i in range(16)]),
+    (2, 8, 2, 32, 8, 2, [40, 5]),
+])
+def test_paged_kernel(cuda_device, dtype, b, h, g, d, bs, max_blocks, pos):
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(pos))
+    args = _paged_inputs(gen, dtype, b, h, g, d, bs, max_blocks, pos)
+    _assert_close(kpaged.paged_decode_attention_cuda(*args, d ** -0.5),
+                  kpaged.paged_decode_attention_plain(*args, d ** -0.5), dtype)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, kp, vp, tables, pos = _paged_inputs(gen, torch.float32, 2, 8, 2, 32, 8, 4, [9, 3])
+    with pytest.raises(TypeError, match="int32"):
+        kpaged.paged_decode_attention_cuda(q, kp, vp, tables.long(), pos, 0.1)
+    with pytest.raises(TypeError, match="share"):
+        kpaged.paged_decode_attention_cuda(q, kp.bfloat16(), vp, tables, pos, 0.1)
+    with pytest.raises(ValueError, match="shapes"):
+        kpaged.paged_decode_attention_cuda(q, kp, vp, tables[:1], pos, 0.1)
+
+
+@pytest.mark.cuda
 def test_ops_launch_kernels_and_count(cuda_device):
     ops.reset_launch_counts()
     x = torch.randn(4, 64, device=cuda_device)
@@ -96,8 +162,13 @@ def test_ops_launch_kernels_and_count(cuda_device):
     ops.flash_attention(q, k, k)
     ops.decode_attention(q[:, :1].contiguous(), k, k,
                          torch.ones(1, 16, dtype=torch.bool, device=cuda_device), 0.2)
+    pool = k.reshape(4, 4, 2, 32)
+    ops.paged_decode_attention(q[:, :1].contiguous(), pool, pool,
+                               torch.tensor([[2, 1]], dtype=torch.int32, device=cuda_device),
+                               torch.tensor([6], dtype=torch.int32, device=cuda_device), 0.2)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"flash_attention": 1, "decode_attention": 1, "rmsnorm": 1}
+    assert ops.launch_counts() == {"flash_attention": 1, "decode_attention": 1,
+                                   "paged_decode_attention": 1, "rmsnorm": 1}
     with pytest.raises(ValueError, match="contiguous"):
         kfa.flash_attention_cuda(q.transpose(1, 2), k, k)
 

@@ -15,11 +15,14 @@ import torch
 from repro.kernels import ref as kref
 from repro.kernels.decode_attention import decode_attention_fwd
 from repro.kernels.flash_attention import flash_attention_fwd
+from repro.kernels.paged_attention import paged_decode_attention_fwd
 from repro.kernels.rmsnorm import rmsnorm_fwd
+from repro.models.attention import _repeat_kv, sdpa
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import decode_attention as kdec
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import rmsnorm as krms
 
 F32_TOL = 3e-5      # fp32: same algorithm, sums in another order
@@ -99,6 +102,87 @@ def test_decode_plain_matches_jax(b, h, g, d, span):
     assert _err(out, oracle) < F32_TOL
 
 
+@pytest.mark.parametrize("span,block_s", [(64, 32), (96, 32), (40, 40)])
+def test_decode_plain_empty_lane_is_mean_of_v(span, block_s):
+    """A lane whose valid row is all False: the Pallas kernel's finite mask
+    makes its softmax uniform, so it returns the mean of V over the span;
+    the plain version (and so the CUDA kernel it holds) must agree."""
+    b, h, g, d = 3, 8, 2, 32
+    q = _normal(0, (b, 1, h, d))
+    ck, cv = _normal(1, (b, span, g, d)), _normal(2, (b, span, g, d))
+    valid = np.arange(span)[None] <= np.array([[5], [-1], [span - 1]])
+    assert not valid[1].any()
+    out = kdec.decode_attention_plain(*(torch.from_numpy(a) for a in (q, ck, cv, valid)),
+                                      d ** -0.5)
+    kern = decode_attention_fwd(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+                                jnp.asarray(valid), scale=d ** -0.5, block_s=block_s,
+                                interpret=True)
+    assert _err(out, kern) < F32_TOL
+    mean_v = np.repeat(cv[1].mean(0), h // g, axis=0)                # (H, D), GQA heads
+    assert _err(out[1, 0], mean_v) < F32_TOL
+    assert _err(out[1, 0], np.asarray(kern)[1, 0]) < F32_TOL
+
+
+def _paged_case(seed, b, h, g, d, bs, max_blocks, pos, dtype="float32"):
+    """Inputs of one paged-decode case: a pool of random blocks (the sink,
+    block 0, random too, so that reading it would show), and per lane a
+    table of distinct blocks covering 0..pos, the rest sink entries.  Lane
+    1 shares lane 0's first block."""
+    rng = np.random.default_rng(seed)
+    nb = 1 + b * max_blocks
+    q = _normal(seed, (b, 1, h, d), dtype)
+    kp, vp = _normal(seed + 1, (nb, bs, g, d), dtype), _normal(seed + 2, (nb, bs, g, d), dtype)
+    perm = iter(rng.permutation(np.arange(1, nb)))
+    tables = np.zeros((b, max_blocks), np.int32)
+    for lane, p in enumerate(pos):
+        for i in range(min(p, max_blocks * bs - 1) // bs + 1):
+            tables[lane, i] = next(perm)
+    if b > 1:
+        tables[1, 0] = tables[0, 0]
+    return q, kp, vp, tables, np.asarray(pos, np.int32)
+
+
+def _gather_ref(q, kp, vp, tables, pos, scale):
+    """repro's gather reference (models/attention.py decode_attn_paged)."""
+    b, _, h, d = q.shape
+    bs, g = kp.shape[1], kp.shape[2]
+    span = tables.shape[1] * bs
+    q, kp, vp = (jnp.asarray(a).astype(jnp.float32) for a in (q, kp, vp))
+    ck = kp[tables].reshape(b, span, g, d)
+    cv = vp[tables].reshape(b, span, g, d)
+    valid = jnp.arange(span)[None, :] <= jnp.asarray(pos)[:, None]
+    return sdpa(q, _repeat_kv(ck, h // g), _repeat_kv(cv, h // g), valid[:, None, None, :],
+                scale)
+
+
+@pytest.mark.parametrize("b,h,g,d,bs,max_blocks,pos", [
+    (3, 8, 2, 32, 8, 4, [9, 30, 0]),           # ragged, pos 0, shared first block
+    (2, 4, 4, 128, 16, 3, [15, 32]),           # H/G 1, D 128, pos on block boundaries
+    (4, 8, 2, 32, 4, 5, [19, 3, 12, 8]),       # pos at span - 1, boundaries, sink tails
+    (2, 32, 8, 128, 16, 8, [127, 70]),         # granite geometry, H/G 4
+    (2, 8, 2, 32, 8, 2, [40, 5]),              # pos past the span: saturates
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_matches_jax(b, h, g, d, bs, max_blocks, pos, dtype):
+    q, kp, vp, tables, pos = _paged_case(len(pos) + d, b, h, g, d, bs, max_blocks, pos, dtype)
+    assert (tables[1] == tables[0, 0]).any() and (tables == 0).any()
+    scale = d ** -0.5
+    out = kpaged.paged_decode_attention_plain(
+        *(tensor_from_numpy(a) for a in (q, kp, vp, tables, pos)), scale)
+    assert out.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    kern = paged_decode_attention_fwd(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                                      jnp.asarray(tables), jnp.asarray(pos), scale=scale,
+                                      interpret=True)
+    ref = np.asarray(_gather_ref(q, kp, vp, tables, pos, scale))
+    got = out.float().numpy()
+    if dtype == "float32":
+        assert _err(out, kern) < F32_TOL
+        assert _err(out, ref) < F32_TOL
+    else:                                     # bf16: 2e-2 x max(1, |ref|)
+        for r in (np.asarray(kern.astype(jnp.float32)), ref):
+            assert (np.abs(got - r) <= BF16_TOL * np.maximum(1.0, np.abs(r))).all()
+
+
 @pytest.mark.parametrize("b,g,s,sms", [(8, 8, 1024, 132), (1, 1, 64, 132), (2, 8, 4096, 132),
                                        (8, 8, 1000, 132), (64, 8, 128, 132), (1, 2, 65, 4)])
 def test_decode_split_plan_covers_span(b, g, s, sms):
@@ -121,7 +205,14 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     valid = torch.arange(40)[None] < 7
     assert torch.equal(ops.decode_attention(q[:, :1], k, k, valid, 0.2),
                        kdec.decode_attention_plain(q[:, :1], k, k, valid, 0.2))
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
+    pool = k.reshape(5, 8, 2, 32)
+    tables = torch.tensor([[3, 1, 0]], dtype=torch.int32)
+    pos = torch.tensor([11], dtype=torch.int32)
+    assert torch.equal(ops.paged_decode_attention(q[:, :1], pool, pool, tables, pos, 0.2),
+                       kpaged.paged_decode_attention_plain(q[:, :1], pool, pool, tables, pos,
+                                                           0.2))
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "paged_decode_attention": 0, "rmsnorm": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -136,3 +227,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kdec.decode_attention_cuda(q[:, :1], q[:, :, :2], q[:, :, :2],
                                    torch.ones(1, 8, dtype=torch.bool), 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kpaged.paged_decode_attention_cuda(q[:, :1], q[0, :, :2][None], q[0, :, :2][None],
+                                           torch.zeros(1, 1, dtype=torch.int32),
+                                           torch.zeros(1, dtype=torch.int32), 0.1)

@@ -196,3 +196,88 @@ def test_move_params_keeps_values():
     params = tbuild_model(tcfg, trc, device="cpu").init(0)
     moved = move_params(params, "cpu")
     assert torch.equal(moved["blocks"][1]["attn"]["wo"], params["blocks"][1]["attn"]["wo"])
+
+
+def _pool_setup(bs=4, max_blocks=8):
+    """Two prompts whose first block is the same tokens, their prefill K/V
+    pasted into a pool: lane 0 on blocks [4, 2, 9], lane 1 sharing block 4
+    and then on [7]; growth blocks for 4 decode steps after them, sink
+    entries past."""
+    shared = _tokens(5, (bs,))
+    p0 = np.concatenate([shared, _tokens(6, (7,))])               # 11 tokens
+    p1 = np.concatenate([shared, _tokens(7, (2,))])               # 6 tokens
+    tables = np.zeros((2, max_blocks), np.int32)
+    tables[0, :4] = [4, 2, 9, 3]
+    tables[1, :3] = [4, 7, 5]
+    return (p0, p1), tables
+
+
+def _paste(pool, lane_kv, table, lo, hi, bs):
+    """pool (L, NB, bs, G, D) numpy; write positions lo..hi-1 of one lane's
+    dense K/V (L, span, G, D) at the table's slots."""
+    for p in range(lo, hi):
+        pool[:, table[p // bs], p % bs] = lane_kv[:, p]
+
+
+def test_pool_decode_step_matches_jax_and_dense(pair):
+    """lm_decode_step_pool on a hand-built table with a block shared by two
+    lanes: logits within 1e-5 of the JAX pool step (with its Pallas kernel in
+    interpret mode, or its gather path) with identical argmax over 4 steps,
+    and within 1e-5 of the port's own dense decode of the same sequences."""
+    model, params, tmodel, tparams = pair
+    bs, nb = 4, 10
+    (p0, p1), tables = _pool_setup(bs)
+    v = tmodel.cfg.vocab_size
+    pools = {k: np.zeros((tmodel.cfg.n_layers, nb + 1, bs, tmodel.cfg.n_kv_heads,
+                          tmodel.cfg.head_dim), np.float32) for k in ("k", "v")}
+    dense_t, first = [], []
+    for lane, (prompt, lo) in enumerate(((p0, 0), (p1, bs))):     # lane 1 skips the shared block
+        lt, ct = tmodel.prefill(tparams, {"tokens": torch.as_tensor(prompt[None]).long()},
+                                MAX_LEN)
+        for k in ("k", "v"):
+            _paste(pools[k], ct["layers"][k][:, 0].numpy(), tables[lane], lo, len(prompt), bs)
+        dense_t.append(ct)
+        first.append(int(torch.argmax(lt[0, :v])))
+    pos = np.array([len(p0), len(p1)], np.int32)
+    jcache = {"layers": {k: jnp.asarray(a) for k, a in pools.items()}, "pos": jnp.asarray(pos)}
+    tcache = tmodel.decode_state.pool_init(2, nb, bs)
+    for k in ("k", "v"):
+        tcache["layers"][k].copy_(torch.from_numpy(pools[k]))
+    tcache["pos"].copy_(torch.from_numpy(pos))
+    bt = torch.from_numpy(tables)
+    toks = np.array([first], np.int32).T
+    for _ in range(4):
+        lj, jcache = model.decode_state.pool_step(params, jcache, jnp.asarray(toks),
+                                                  jnp.asarray(tables))
+        lt, tcache = tmodel.decode_state.pool_step(tparams, tcache,
+                                                   torch.as_tensor(toks).long(), bt)
+        assert _close(lt, lj) < LOGIT_TOL
+        nxt = torch.argmax(lt[:, :v], -1)
+        assert np.array_equal(nxt.numpy(), np.asarray(jnp.argmax(lj[:, :v], -1)))
+        for lane in range(2):
+            ld, dense_t[lane] = tmodel.decode_step(tparams, dense_t[lane],
+                                                   torch.as_tensor(toks[lane:lane + 1]).long())
+            assert _close(lt[lane:lane + 1], ld.numpy()) < LOGIT_TOL
+        toks = nxt.numpy().astype(np.int32)[:, None]
+    assert tmodel.decode_state.poolable
+    # the shared block was never written by lane 1's decode steps
+    assert np.array_equal(tcache["layers"]["k"][:, 4].numpy(), pools["k"][:, 4])
+
+
+def test_pool_step_writes_idle_lanes_into_the_sink():
+    _, tcfg = _cfgs()
+    trc = tconfigs.RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
+    tmodel = tbuild_model(tcfg, trc, device="cpu")
+    params = tmodel.init(0)
+    cache = tmodel.decode_state.pool_init(3, 6, 4)
+    assert tuple(cache["layers"]["k"].shape) == (tcfg.n_layers, 7, 4, tcfg.n_kv_heads,
+                                                 tcfg.head_dim)
+    tables = torch.zeros((3, 4), dtype=torch.int32)
+    tables[1, 0] = 5                                  # lanes 0 and 2 idle
+    _, cache = tmodel.decode_state.pool_step(params, cache, torch.zeros((3, 1),
+                                                                        dtype=torch.int64),
+                                             tables)
+    written = cache["layers"]["k"].abs().sum(dim=(0, 3, 4)) > 0       # (NB+1, bs)
+    assert written[5, 0] and written[0, 0]
+    assert int(written.sum()) == 2                    # lane 1's row and one sink row
+    assert cache["pos"].tolist() == [1, 1, 1]
