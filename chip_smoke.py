@@ -8,9 +8,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
 1. require a CUDA device; print ``nvidia-smi``'s card name and power limit;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card at
-   granite-8b shapes (the decode kernel also on a lane with no valid
-   position, the paged kernel over 16 lanes' block tables with shared
-   blocks), and time kernel, plain version and a library call;
+   granite-8b shapes and the rwkv6 kernel at rwkv6-1.6b's training shape
+   (the decode kernel also on a lane with no valid position, the paged
+   kernel over 16 lanes' block tables with shared blocks, the rwkv6 kernel
+   also against the token recurrence under strong decay), and time kernel,
+   plain version and a library call (and the rwkv6 backward);
 4. reduced granite in fp32 with the same weights on the card (kernels) and
    on the CPU (plain versions): logits and greedy ServeEngine tokens agree,
    over dense lanes and over the paged pool with the prefix cache (a run
@@ -27,12 +29,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
 7. the same weights served over the paged pool with the prefix cache: 32
    chat requests behind a shared 512-token system prompt, then 4 repeats
    (full hits), on a pool small enough to preempt; the paged kernel runs 36
-   times a decode step and the dense decode kernel never.
+   times a decode step and the dense decode kernel never;
+8. ``parity_train``: reduced rwkv6 and reduced granite (4 layers, fp32),
+   the same weights on the card (kernels, their gradients through the
+   autograd wrappers) and on the CPU (plain versions): loss, every
+   gradient leaf and the losses of 3 AdamW steps agree;
+9. ``train``: full-width rwkv6-1.6b (24 layers, bf16, random seeded
+   weights) trained 20 steps through the launcher's ``Trainer``, step
+   function and AdamW on 8 x 512-token ``TokenPipeline`` batches; one
+   checkpoint written, restored and found bit-equal; step time, tok/s,
+   MFU, peak memory and a profile of a step.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
 no paged one, a paged path flash, paged and RMSNorm kernels and no dense
-decode one.
+decode one, the rwkv6 training path the rwkv6 kernel (24 times a forward,
+twice that under remat) and RMSNorm and no decode kernel.
 
 The line before the last is a JSON object of per-kernel numbers, the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -78,11 +90,28 @@ MODEL_TOL = 1e-4
 # A fault of masking, padding or indexing moves logits by O(1).
 BF16_MODEL_TOL = 0.25
 
-PHASES = ("build", "kernels", "parity", "parity_bf16", "serve", "serve_paged")
+PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
+          "train")
+OPT_IN = ("lr_probe",)
 
 # the kernels each serving path must launch; the other decode kernel must not
 DENSE_PATH = ("flash_attention", "decode_attention", "rmsnorm")
 PAGED_PATH = ("flash_attention", "paged_decode_attention", "rmsnorm")
+# the kernels each training path must launch; no serving kernel may
+RWKV_TRAIN_PATH = ("rwkv6_scan", "rmsnorm")
+DENSE_TRAIN_PATH = ("flash_attention", "rmsnorm")
+SERVING_ONLY = ("decode_attention", "paged_decode_attention")
+# rwkv6 kernel vs plain version in fp32: |err| <= RWKV_F32_TOL * max|ref|, the
+# reference kernel's own tolerance (tests/test_kernels.py)
+RWKV_F32_TOL = 3e-5
+# card vs CPU training parity, fp32: loss relative, each gradient leaf
+# |err| <= GRAD_TOL * max(1, max|g|), the losses of 3 AdamW steps relative
+TRAIN_LOSS_TOL = 1e-5
+GRAD_TOL = 1e-4
+STEP_LOSS_TOL = 1e-4
+# full-width training lr: the reference launcher's 3e-3 (set for its reduced
+# config) raised rwkv6-1.6b's loss over 20 steps; 6e-4 lowers it (PERF.md)
+TRAIN_LR = 6e-4
 
 
 _T0 = time.perf_counter()
@@ -125,6 +154,14 @@ def check_path(counts: dict, path: tuple, what: str) -> None:
     if missed or counts[other]:
         raise AssertionError(f"{what}: launches {counts}; the path must launch {list(path)} "
                              f"and never {other}")
+
+
+def check_train_path(counts: dict, path: tuple, what: str) -> None:
+    """Every kernel of ``path`` launched in this run, and no serving kernel."""
+    missed = [k for k in path if counts[k] == 0]
+    if missed or any(counts[k] for k in SERVING_ONLY):
+        raise AssertionError(f"{what}: launches {counts}; the path must launch {list(path)} "
+                             f"and never {list(SERVING_ONLY)}")
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float,
@@ -184,9 +221,9 @@ def phase_kernels(results: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
 
-    # -- rmsnorm: (8192, 4096) prefill-sized and (8, 4096) decode-sized rows
-    for rows in (8192, 8):
-        d = 4096
+    # -- rmsnorm: granite-8b's (8192, 4096) prefill-sized and (8, 4096)
+    # decode-sized rows, and rwkv6-1.6b's training rows (8 x 512, 2048)
+    for rows, d in ((8192, 4096), (8, 4096), (4096, 2048)):
         sets = [(_rand((rows, d), bf, gen), (1 + 0.1 * _rand((d,), torch.float32, gen)).to(bf))
                 for _ in range(n_sets(rows * d * 2 * 2))]
         x, s = sets[0]
@@ -288,6 +325,7 @@ def phase_kernels(results: dict) -> None:
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         shape=f"B={b} S={s} H={h} G={g} D={d} bf16, {live} live positions")
     paged_kernel(results, gen)
+    rwkv6_kernel(results, gen)
 
 
 def paged_tables(rng: np.random.Generator, pos: np.ndarray, bs: int, max_blocks: int,
@@ -376,6 +414,84 @@ def paged_kernel(results: dict, gen: torch.Generator) -> None:
                 "PyTorch call computes the function",
         shape=f"B={b} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16, {n_live} live "
               f"positions")
+
+
+def rwkv6_flops(b: int, t: int, h: int, dk: int, c: int = 16) -> float:
+    """fp32 operations of the chunked WKV6 kernel (chunk ``c``), counting a
+    multiply-add as 2 and leaving out the exponentials: per chunk and
+    (batch, head) the inter term r e^{La} S (2cK^2), the scores of the
+    c(c-1)/2 pairs s < t (3K each) and the bonus diagonal (3cK), P v over
+    the c(c+1)/2 pairs (2K each), the decay weights (2cK) and the state
+    update (2cK^2 + K^2)."""
+    per_chunk = (4 * c * dk * dk + dk * dk + 3 * c * (c - 1) // 2 * dk + 3 * c * dk
+                 + c * (c + 1) * dk + 2 * c * dk)
+    return float(b * h * -(-t // c) * per_chunk)
+
+
+def rwkv6_kernel(results: dict, gen: torch.Generator) -> None:
+    """The rwkv6 kernel at rwkv6-1.6b's training shape (B 8, T 512, H 32,
+    K 64), log-decay drawn like the model's at init (-exp(w0 + LoRA) with w0
+    = -4 and the LoRA term ~N(0, 0.8)): bf16 and fp32 against the plain
+    chunked version, and fp32 under strong decay (per-step log-decay down
+    to -5) against the token recurrence."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as krwkv
+    from repro_torch.models.rwkv import rwkv6_scan_plain
+    bf = torch.bfloat16
+    b, t, h, dk = 8, 512, 32, 64
+
+    def inputs(dtype, lw=None):
+        r, k, v = (_rand((b, t, h, dk), dtype, gen) for _ in range(3))
+        if lw is None:
+            lw = -torch.exp(-4.0 + 0.8 * _rand((b, t, h, dk), torch.float32, gen))
+        return r, k, v, lw, 0.3 * _rand((h, dk), torch.float32, gen)
+
+    nbytes = 4 * b * t * h * dk * 2 + b * t * h * dk * 4 + h * dk * 4
+    sets = [inputs(bf) for _ in range(n_sets(nbytes))]
+    args = sets[0]
+    err = check_close("rwkv6 bf16", krwkv.rwkv6_cuda(*args), krwkv.rwkv6_chunked_plain(*args),
+                      BF16_TOL, relative=True)
+
+    def f32_check(name, got, ref):
+        worst = (got - ref).abs().max().item()
+        if not torch.isfinite(got).all() or worst > RWKV_F32_TOL * ref.abs().max().item():
+            raise AssertionError(f"{name}: max |err| {worst:.3e} beyond {RWKV_F32_TOL} x "
+                                 f"max|ref| {ref.abs().max().item():.3e}, or non-finite")
+        return worst / ref.abs().max().item()
+
+    a32 = [a.float() for a in args]
+    rel32 = f32_check("rwkv6 f32", krwkv.rwkv6_cuda(*a32), krwkv.rwkv6_chunked_plain(*a32))
+    strong = inputs(torch.float32, lw=-5.0 * torch.rand((b, t, h, dk), generator=gen,
+                                                          device="cuda"))
+    rec, _ = rwkv6_scan_plain(*strong[:3], torch.exp(strong[3]), strong[4])
+    rel_strong = f32_check("rwkv6 f32 strong decay vs recurrence", krwkv.rwkv6_cuda(*strong),
+                           rec)
+    ms = sync_time_ms([lambda a=a: krwkv.rwkv6_cuda(*a) for a in sets])
+    plain_ms = sync_time_ms([lambda a=a: krwkv.rwkv6_chunked_plain(*a) for a in sets], iters=5)
+    # the autograd backward (autograd through the plain version, recomputed)
+    # of ops.rwkv6_scan at the training step's shape, bf16 like the model
+    r, k, v, lw, u = (x.detach().clone().requires_grad_(True) for x in args)
+    w = torch.exp(lw)
+    out = ops.rwkv6_scan(r, k, v, w, u)
+    g = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (r, k, v, w, u), g, retain_graph=True)
+    if any(x is None or not torch.isfinite(x.float()).all() for x in grads):
+        raise AssertionError("rwkv6 backward: a missing or non-finite gradient")
+    bwd_ms = sync_time_ms([lambda: torch.autograd.grad(out, (r, k, v, w, u), g,
+                                                       retain_graph=True)], iters=5, warmup=1)
+    del out, grads
+    b_ms, b_by = bound(rwkv6_flops(b, t, h, dk), PEAK_F32_FLOPS, nbytes)
+    log(f"[kernels] rwkv6 B={b} T={t} H={h} K={dk} bf16: max_abs_err {err:.3e}; fp32 "
+        f"max|err|/max|ref| {rel32:.2e}, strong decay vs the recurrence {rel_strong:.2e} "
+        f"(tol {RWKV_F32_TOL}); kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  backward "
+        f"(autograd through the plain version) {bwd_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+        f"{rwkv6_flops(b, t, h, dk) / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    results["rwkv6_scan"] = dict(
+        name="rwkv6_scan", route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:71", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes the WKV6 recurrence",
+        backward_ms=bwd_ms, shape=f"B={b} T={t} H={h} K={dk} bf16, log-decay -exp(-4 + 0.8 N)")
 
 
 # ---------------------------------------------------------------------------
@@ -802,31 +918,324 @@ def time_sampler(logits: torch.Tensor, n_lanes: int, iters: int = 10) -> dict:
     return out
 
 
-def profile_step(fn, what: str, top: int = 8) -> None:
-    """Device time by kernel over three calls of ``fn`` (torch.profiler,
-    device activity only) against the unprofiled wall time of a call."""
+def profile_step(fn, what: str, top: int = 8, reps: int = 3, spans: tuple = ()):
+    """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler)
+    against the unprofiled wall time of a call; returns the kernel rows
+    (device us over the calls, launches, name).  With ``spans``, host
+    activity is traced too and the device time of the kernels launched
+    inside each named ``record_function`` span is returned beside the rows
+    ({name: (device us over the calls, entries)})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(reps):
         fn()
     torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6 / 3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
+    wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if spans else [])
+    with profile(activities=acts) as prof:
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    table = prof.key_averages()
     # kernel rows only: an aten op's row repeats the time of the kernels it ran
-    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+    # (a span's own device-side annotation row is not a kernel)
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in table
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows) / 3
+                   and e.self_device_time_total > 0 and e.key not in spans), reverse=True)
+    busy = sum(r[0] for r in rows) / reps
     log(f"[profile] {what}: wall {wall_us / 1e3:.3f} ms per call, device busy "
-        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), {sum(r[1] for r in rows) // 3} "
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), {sum(r[1] for r in rows) // reps} "
         f"kernel launches")
     for t_us, n, key in rows[:top]:
-        log(f"[profile]   {t_us / 3 / 1e3:8.3f} ms  {n // 3:5d} launches  {key[:90]}")
+        log(f"[profile]   {t_us / reps / 1e3:8.3f} ms  {n // reps:5d} launches  {key[:90]}")
+    if not spans:
+        return rows
+    found = {e.key: (e.device_time_total, e.count) for e in table
+             if e.key in spans and e.device_type == torch.autograd.DeviceType.CPU}
+    missing = [name for name in spans if not found.get(name, (0,))[0] > 0]
+    if missing:
+        seen = [(e.key, e.device_type, e.device_time_total, e.count) for e in table
+                if e.key in spans]
+        raise AssertionError(f"profile of {what}: no kernel time inside span {missing}: {seen}")
+    return rows, found
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: training, card vs CPU and full-width rwkv6-1.6b
+# ---------------------------------------------------------------------------
+
+def _loss_and_grads(model, params, tokens):
+    from repro_torch.convert import leaves
+    flat = list(leaves(params))
+    for p in flat:
+        p.requires_grad_(True)
+    loss, _ = model.loss(params, {"tokens": tokens})
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def phase_parity_train(n_layers: int = 4, full_width_layers: int = 2) -> None:
+    """Reduced rwkv6 and reduced granite (``n_layers``), and rwkv6-1.6b at
+    full width (d_model 2048, 32 heads of 64, d_ff 7168, vocab 65536) cut to
+    ``full_width_layers``, in fp32 with the same weights on the card and the
+    CPU: the loss, every gradient leaf (through the kernels' autograd
+    wrappers on the card, at the training path's shapes in the full-width
+    case) and the losses of 3 AdamW steps of the launcher's step function
+    on TokenPipeline batches."""
+    from repro_torch.configs import RunConfig, get_config, reduced_config
+    from repro_torch.convert import move_params
+    from repro_torch.data.synthetic import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_step_fn, token_batches
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    cases = [(f"{arch} reduced", dataclasses.replace(reduced_config(get_config(arch)),
+                                                     n_layers=n_layers), path)
+             for arch, path in (("rwkv6-1.6b", RWKV_TRAIN_PATH), ("granite-8b", DENSE_TRAIN_PATH))]
+    cases.append(("rwkv6-1.6b full width", dataclasses.replace(
+        get_config("rwkv6-1.6b"), n_layers=full_width_layers), RWKV_TRAIN_PATH))
+    for arch, cfg, path in cases:
+        rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
+        cpu, gpu = build_model(cfg, rcfg, device="cpu"), build_model(cfg, rcfg, device="cuda")
+        p_cpu = cpu.init(0)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                 size=(4, 128)))
+        ops.reset_launch_counts()
+        l_g, g_g = _loss_and_grads(gpu, move_params(p_cpu, "cuda"), toks.cuda())
+        counts = ops.launch_counts()
+        l_c, g_c = _loss_and_grads(cpu, p_cpu, toks)
+        check_train_path(counts, path, f"{arch} training parity")
+        loss_err = abs(l_g.item() - l_c.item()) / abs(l_c.item())
+        if not loss_err <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"{arch} loss card {l_g.item()} vs CPU {l_c.item()}")
+        grad_err = 0.0
+        for i, (a, ref) in enumerate(zip(g_g, g_c)):
+            e = (a.cpu() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+            if not e <= GRAD_TOL:
+                raise AssertionError(f"{arch} gradient leaf {i}: {e:.3e} beyond {GRAD_TOL}")
+            grad_err = max(grad_err, e)
+        # 3 AdamW steps of the launcher's step function on both devices
+        opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=3, weight_decay=0.01)
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=4))
+        losses = {}
+        for dev, model in (("cuda", gpu), ("cpu", cpu)):
+            params = move_params(p_cpu, dev)
+            opt, step = adamw.init(params), make_step_fn(model, opt_cfg)
+            data = token_batches(pipe, 0, dev)
+            losses[dev] = []
+            for _ in range(3):
+                params, opt, m = step(params, opt, next(data))
+                losses[dev].append(m["loss"].item())
+        step_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        if not step_err <= STEP_LOSS_TOL:
+            raise AssertionError(f"{arch} AdamW losses card {losses['cuda']} vs CPU "
+                                 f"{losses['cpu']}")
+        log(f"[parity-train] {arch} (d_model {cfg.d_model}, {cfg.n_layers} layers), fp32, "
+            f"4 x 128 tokens: loss card "
+            f"{l_g.item():.6f} vs CPU {l_c.item():.6f} (rel {loss_err:.2e}, tol "
+            f"{TRAIN_LOSS_TOL}); {len(g_c)} gradient leaves, worst {grad_err:.2e} of max(1, "
+            f"max|g|) (tol {GRAD_TOL}); 3 AdamW steps: losses card {losses['cuda']} vs CPU "
+            f"{losses['cpu']} (worst rel {step_err:.2e}, tol {STEP_LOSS_TOL}); launches {counts}")
+
+
+def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
+    """rwkv6-1.6b at full width and depth, bf16 params and compute with
+    per-block remat (the RunConfig defaults), random weights from seed 0,
+    trained through the launcher's step function and Trainer on 8 x 512
+    TokenPipeline tokens.  AdamW as the reference launcher sets it
+    (warmup 10, weight decay 0.01) but at lr ``TRAIN_LR``: the launcher's
+    3e-3, set for its reduced config, raised this model's loss.  The loss
+    must fall on a held-out batch, evaluated before and after."""
+    import shutil
+    from repro_torch.checkpoint.store import restore
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.convert import leaves
+    from repro_torch.data.synthetic import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_step_fn, token_batches
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg, rcfg = get_config("rwkv6-1.6b"), RunConfig()
+    batch, seq = 8, 512
+    model = build_model(cfg, rcfg, device="cuda")
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=n_steps,
+                                weight_decay=0.01)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch, seed=rcfg.seed))
+    held_out = next(token_batches(pipe, 100_000, model.device))     # a step the run never takes
+
+    def eval_loss(p):
+        with torch.no_grad():
+            return model.loss(p, held_out)[0].item()
+    ckpt_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    n_embed = params["embed"]["tok"].numel() + params["head"]["w"].numel()
+    log(f"[train] rwkv6-1.6b {cfg.n_layers} layers d_model {cfg.d_model} vocab "
+        f"{cfg.vocab_size}: {n_params} params ({n_params - n_embed} outside the embedding and "
+        f"head), bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
+    loss_before = eval_loss(params)
+    events = []
+
+    def on_metrics(step, rec):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    tr = Trainer(TrainerConfig(total_steps=n_steps, ckpt_every=n_steps, ckpt_dir=str(ckpt_dir),
+                               log_every=5),
+                 make_step_fn(model, opt_cfg), lambda: (params, adamw.init(params)),
+                 lambda start: token_batches(pipe, start, model.device), on_metrics=on_metrics)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    check_train_path(counts, RWKV_TRAIN_PATH, "full-width rwkv6 training")
+    per_fwd = cfg.n_layers * (2 if rcfg.remat else 1)
+    if counts["rwkv6_scan"] != per_fwd * n_steps or counts["flash_attention"]:
+        raise AssertionError(f"launches {counts}: the rwkv6 kernel must run {per_fwd} times a "
+                             f"step ({cfg.n_layers} layers, remat {rcfg.remat})")
+    loss_after = eval_loss(out["params"])
+    if not all(np.isfinite(losses)) or not loss_after < loss_before:
+        raise AssertionError(f"training losses {losses}, held-out loss {loss_before} -> "
+                             f"{loss_after}: not finite or not falling")
+    host_ms = [r["step_s"] * 1e3 for r in out["history"][warmup:]]
+    dev_ms = [a.elapsed_time(b) for a, b in zip(events[warmup:], events[warmup + 1:])]
+    step_ms = float(np.median(host_ms))
+    tokens = batch * seq
+    flops = 6.0 * (n_params - n_embed) * tokens
+    log(f"[train] {n_steps} steps of {batch} x {seq} tokens, lr {TRAIN_LR}: training loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, held-out batch {loss_before:.4f} -> "
+        f"{loss_after:.4f}; step after {warmup} warm-up steps: median {step_ms:.1f} ms by the "
+        f"trainer's clock (min {min(host_ms):.1f}, max {max(host_ms):.1f}), median "
+        f"{float(np.median(dev_ms)):.1f} ms between card events; {tokens / step_ms * 1e3:.0f} "
+        f"tok/s; MFU {flops / (step_ms / 1e3) / PEAK_BF16_FLOPS:.4f} (6 x {n_params - n_embed} "
+        f"non-embedding params x {tokens} tokens per step / step time / 989 TFLOP/s bf16 "
+        f"dense; remat's recompute not counted as useful work); peak device memory "
+        f"{peak / 2**30:.2f} GiB; run wall {wall:.1f} s of which steps "
+        f"{sum(r['step_s'] for r in out['history']):.1f} s")
+    log(f"[train] launches over the run: {counts}")
+    # the checkpoint the trainer wrote at the last step restores bit-equal
+    t0 = time.perf_counter()
+    state, extra = restore(ckpt_dir, like={"params": out["params"], "opt": out["opt"]})
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(state), leaves({"params": out["params"], "opt": out["opt"]})))
+    size = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    if not same or extra.get("next_step") != n_steps:
+        raise AssertionError(f"checkpoint of step {n_steps} does not restore bit-equal "
+                             f"(extra {extra})")
+    log(f"[train] checkpoint of step {n_steps}: {size / 1e9:.2f} GB, restored bit-equal in "
+        f"{t_restore:.1f} s")
+    del state
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    add_launches(results, counts, "train")
+    # where a step's time goes
+    step = make_step_fn(model, opt_cfg)
+    p, o = out["params"], out["opt"]
+    data = token_batches(pipe, n_steps, model.device)
+    b0 = next(data)
+
+    def one_step():
+        step(p, o, b0)
+    rows, spans = profile_step(one_step, "rwkv6-1.6b training step, 8 x 512 tokens", top=12,
+                               reps=1, spans=("rwkv6_backward",))
+    busy = sum(r[0] for r in rows) / 1e3
+    fwd = sum(r[0] for r in rows if "rwkv6_kernel" in r[2]) / 1e3
+    bwd_us, bwd_n = spans["rwkv6_backward"]
+    gemm = sum(r[0] for r in rows if "gemm" in r[2].lower() or "nvjet" in r[2]) / 1e3
+    if bwd_n != cfg.n_layers:
+        raise AssertionError(f"a step ran the rwkv6 backward {bwd_n} times, not {cfg.n_layers}")
+    log(f"[train] within a profiled step of {busy:.1f} ms device time: the rwkv6 forward "
+        f"kernel {fwd:.2f} ms ({per_fwd} launches); the rwkv6 backward (autograd through the "
+        f"plain version, span rwkv6_backward) {bwd_us / 1e3:.1f} ms over {bwd_n} entries "
+        f"({bwd_us / 1e3 / bwd_n:.2f} ms each); cuBLAS GEMMs {gemm:.1f} ms")
+
+
+def _train_losses(cfg, rcfg, lr: float, n_steps: int, batch: int, seq: int, device: str,
+                  params=None, frozen: str = "") -> list:
+    """Per-step losses of the launcher's step function from seed-0 weights
+    (or ``params``) on TokenPipeline batches, AdamW as the reference
+    launcher sets it (warmup 10, weight decay 0.01) at ``lr``; the
+    top-level param group ``frozen`` is put back after every step."""
+    from repro_torch.data.synthetic import DataConfig, TokenPipeline
+    from repro_torch.launch.train import make_step_fn, token_batches
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    model = build_model(cfg, rcfg, device=device)
+    params = model.init(0) if params is None else params
+    step = make_step_fn(model, adamw.AdamWConfig(lr=lr, warmup_steps=10, total_steps=n_steps,
+                                                 weight_decay=0.01))
+    opt = adamw.init(params)
+    data = token_batches(TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                  global_batch=batch, seed=rcfg.seed)), 0, device)
+    keep = {k: v.detach().clone() for k, v in params[frozen].items()} if frozen else {}
+    losses = []
+    for _ in range(n_steps):
+        params, opt, m = step(params, opt, next(data))
+        with torch.no_grad():
+            for k, v in keep.items():
+                params[frozen][k].copy_(v)
+        losses.append(m["loss"].item())
+    return losses
+
+
+def phase_lr_probe(n_steps: int = 20) -> None:
+    """Not run by default.  Why the reference launcher's lr 3e-3 (set for
+    its reduced config, d_model 128) raises rwkv6-1.6b's loss at full
+    width: 20 steps of 8 x 512 tokens from seed-0 weights at lr 3e-3 and
+    6e-4 over d_model 512, 1024 and 2048 (24 layers, 64-wide heads, d_ff
+    3.5 d_model, vocab 65536, bf16), at d_model 2048 with the reduced
+    config's vocab of 512, in fp32, and with the head or the embedding
+    frozen at its init; then full width cut to 2 layers in
+    fp32 on the card (kernels) and on the CPU (plain versions) from the
+    same weights, 10 steps of 4 x 128 tokens at lr 3e-3."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.convert import move_params
+    from repro_torch.models.api import build_model
+    full = get_config("rwkv6-1.6b")
+
+    def show(what, losses):
+        log(f"[lr-probe] {what}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (max "
+            f"{max(losses):.4f}, last - first {losses[-1] - losses[0]:+.4f}); "
+            f"{[round(x, 4) for x in losses]}")
+
+    def width(d, **kw):
+        return dataclasses.replace(full, d_model=d, n_heads=d // 64, n_kv_heads=d // 64,
+                                   d_ff=7 * d // 2, **kw)
+    runs = [(f"d_model {d}, bf16", width(d), RunConfig(), (3e-3, 6e-4), "")
+            for d in (512, 1024, 2048)]
+    runs += [("d_model 2048, vocab 512, bf16", width(2048, vocab_size=512), RunConfig(), (3e-3,),
+              ""),
+             ("d_model 2048, fp32", full, RunConfig(param_dtype="float32",
+                                                    compute_dtype="float32"), (3e-3,), "")]
+    runs += [(f"d_model 2048, {group} frozen, bf16", full, RunConfig(), (3e-3,), group)
+             for group in ("head", "embed")]
+    for what, cfg, rcfg, lrs, frozen in runs:
+        for lr in lrs:
+            show(f"{what}, lr {lr}", _train_losses(cfg, rcfg, lr, n_steps, 8, 512, "cuda",
+                                                   frozen=frozen))
+            torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, n_layers=2)
+    rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
+    p_cpu = build_model(cfg, rcfg, device="cpu").init(0)
+    got = {dev: _train_losses(cfg, rcfg, 3e-3, 10, 4, 128, dev, move_params(p_cpu, dev))
+           for dev in ("cuda", "cpu")}
+    for dev, losses in got.items():
+        show(f"d_model 2048, 2 layers, fp32, 4 x 128 tokens, lr 0.003, {dev}", losses)
+    log(f"[lr-probe] 2 layers card vs CPU: worst relative loss difference "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(got['cuda'], got['cpu'])):.2e}")
 
 
 # ---------------------------------------------------------------------------
@@ -834,7 +1243,8 @@ def profile_step(fn, what: str, top: int = 8) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
+                    help=f"comma-separated subset of {PHASES + OPT_IN}; {OPT_IN} run only "
+                         f"when named")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -859,12 +1269,20 @@ def main(argv=None) -> int:
         phase_parity()
     if "parity_bf16" in phases:
         phase_parity_bf16()
+    if "parity_train" in phases:
+        phase_parity_train()
     full = None
     if "serve" in phases:
         full = full_width_model()
         phase_serve(results, *full)
     if "serve_paged" in phases:
         phase_serve_paged(results, *(full or full_width_model()))
+    del full
+    torch.cuda.empty_cache()
+    if "train" in phases:
+        phase_train(results)
+    if "lr_probe" in phases:
+        phase_lr_probe()
     kernels = [dict(r, launches=r.get("launches")) for r in results.values()]
     if "kernels" in phases and len(kernels) != len(ops.launch_counts()):
         raise AssertionError(f"kernels line lists {[k['name'] for k in kernels]}")

@@ -1,7 +1,7 @@
-"""Architecture registry of the PyTorch port: the archs it serves so far.
+"""Architecture registry of the PyTorch port: the archs it serves or trains so far.
 
 The model configs are copies of ``repro.configs`` (the port imports nothing
-from the JAX package).  Families the port does not serve yet stay out of
+from the JAX package).  Families the port does not run yet stay out of
 the registry; ``reduced_config`` is the reference's, unchanged.
 """
 
@@ -22,9 +22,9 @@ from repro_torch.configs.base import (  # noqa: F401
     shape_applicable,
 )
 
-from repro_torch.configs import granite_8b  # noqa: E402
+from repro_torch.configs import granite_8b, rwkv6_1p6b  # noqa: E402
 
-_MODULES = (granite_8b,)
+_MODULES = (granite_8b, rwkv6_1p6b)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.arch_id: m.CONFIG for m in _MODULES}
 

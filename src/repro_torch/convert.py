@@ -36,14 +36,32 @@ def move_params(tree: Any, device) -> Any:
 
 
 def leaves(tree: Any):
-    """The leaves of a tree of dicts, lists and tuples, in order."""
+    """The leaves of a tree of dicts, lists and tuples, in the order
+    ``jax.tree.leaves`` gives them: dicts by sorted key, sequences in order.
+    Two trees of one structure give their leaves in the same order, however
+    their dicts were built."""
     if isinstance(tree, dict):
-        tree = list(tree.values())
+        tree = [tree[k] for k in sorted(tree)]
     if isinstance(tree, (list, tuple)):
         for v in tree:
             yield from leaves(v)
     else:
         yield tree
+
+
+def unflatten(like: Any, values) -> Any:
+    """A tree of ``like``'s structure whose leaves are ``values``, taken in
+    :func:`leaves` order."""
+    it = iter(values)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(like)
 
 
 def params_from_jax(tree: dict, device="cuda") -> dict:

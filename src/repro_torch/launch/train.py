@@ -1,0 +1,110 @@
+"""Training launcher (port of ``repro/launch/train.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+        --steps 200 [--device cpu]
+
+Runs on ``cuda`` unless ``--device cpu`` is given.  The reference's flags
+and defaults are kept, with one quirk: ``--reduced`` is ``store_true`` with
+``default=True``, so the launcher always trains the reduced config (as the
+reference's does; ROADMAP §3).  ``--use-kernels`` is accepted and has no
+effect: the device decides between kernels and plain versions.  Only the
+``single`` strategy runs; the multi-device ones wait for ROADMAP §1 item
+11.  Checkpoints go every ``--ckpt-every`` steps to ``--ckpt-dir`` (under
+the working directory by default), and a run resumes from the latest one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, RunConfig, get_config, reduced_config
+from repro_torch.convert import leaves, unflatten
+from repro_torch.data.synthetic import DataConfig, TokenPipeline
+from repro_torch.models.api import Model, build_model
+from repro_torch.optim import adamw
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+
+def make_step_fn(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
+    """step_fn(params, opt, batch) -> (params, opt, metrics): the loss and
+    its gradient by autograd, then one AdamW update (in place)."""
+
+    def step_fn(params, opt, batch):
+        flat = list(leaves(params))
+        for p in flat:                       # restored leaves come back without grad
+            p.requires_grad_(True)
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, flat)
+        params, opt, stats = adamw.update(opt_cfg, unflatten(params, grads), opt, params)
+        return params, opt, dict(loss=loss.detach(), **stats)
+
+    return step_fn
+
+
+def token_batches(pipe: TokenPipeline, start: int, device):
+    """Batches of ``pipe`` from step ``start`` on, as int32 tensors on ``device``."""
+    step = start
+    while True:
+        yield {k: torch.as_tensor(v).to(device) for k, v in pipe.batch(step).items()}
+        step += 1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="granite-8b")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override n_layers on the reduced config")
+    ap.add_argument("--schedule", choices=["gpipe", "hybrid"], default="hybrid")
+    ap.add_argument("--strategy", default="single",
+                    choices=["single", "pp_shardmap", "gspmd_tp", "gspmd_pp"])
+    ap.add_argument("--ckpt-dir", default="build/repro_train")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--use-kernels", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.strategy != "single":
+        raise NotImplementedError(f"strategy {args.strategy!r}: multi-device training is not "
+                                  f"ported to repro_torch yet (ROADMAP §1 item 11)")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    rcfg = RunConfig(param_dtype="float32", compute_dtype="float32",
+                     remat=False, schedule=args.schedule,
+                     use_kernels=args.use_kernels)
+    model = build_model(cfg, rcfg, device=args.device)
+    opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=10,
+                                total_steps=args.steps, weight_decay=0.01)
+
+    def init_state():
+        p = model.init(0)
+        print(f"[train] {cfg.arch_id}: {sum(t.numel() for t in leaves(p)) / 1e6:.2f}M params, "
+              f"strategy={args.strategy}, device={model.device}")
+        return p, adamw.init(p)
+
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                    global_batch=args.batch, seed=rcfg.seed))
+    tr = Trainer(TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                               ckpt_dir=args.ckpt_dir, log_every=10),
+                 make_step_fn(model, opt_cfg), init_state,
+                 lambda start: token_batches(pipe, start, model.device))
+    out = tr.run()
+    losses = out["losses"]
+    print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"over {len(losses)} steps")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,1 @@
-"""Dense decoder LM in PyTorch: layers, attention, assembly, model protocol."""
+"""Decoder LMs in PyTorch (dense and rwkv6): layers, attention, assembly, model protocol."""

@@ -4,6 +4,7 @@
     params = model.init(seed)
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, cache, tokens)
+    loss, aux = model.loss(params, batch)          # training, dense and rwkv
 
 ``model.decode_state`` (a :class:`DecodeState`) tells the serving backends
 what the decode state supports; ``batched_prefill`` is set only where
@@ -21,13 +22,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import lm as LM
-from repro_torch.models.blocks import require_dense
+from repro_torch.models.blocks import require_kv_serving, require_ported
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeState:
-    """``kind`` is the state taxonomy ("attention" for every family the port
-    serves); ``batched_prefill(params, batch, lengths, max_len)`` is the
+    """``kind`` is the state taxonomy ("attention" for the dense family,
+    "recurrent" for rwkv, which the port trains but does not serve yet);
+    ``batched_prefill(params, batch, lengths, max_len)`` is the
     right-padded bucketed prefill, or None where padding would leak.
 
     ``pool_init(n_lanes, n_blocks, block_size)`` / ``pool_step(params,
@@ -63,17 +65,14 @@ class Model:
     decode_state: DecodeState = DecodeState(kind="attention")
 
 
-def _no_loss(*_a, **_k):
-    raise NotImplementedError("training (lm_loss, AdamW, flash backward) is ROADMAP §1 "
-                              "item 4, the port's training slice")
-
-
 def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     """The model's entry points on ``device`` (default ``cuda``).
 
-    Dense decoder LMs only; other families raise NotImplementedError naming
-    their ROADMAP item.  Params and compute share one dtype here."""
-    require_dense(cfg)
+    Dense decoder LMs train and serve; rwkv6 trains, and its serving entry
+    points raise NotImplementedError naming the recurrent-serving item;
+    other families raise naming their ROADMAP item.  Params and compute
+    share one dtype here."""
+    require_ported(cfg)
     if rcfg.param_dtype != rcfg.compute_dtype:
         raise ValueError(f"repro_torch runs with param_dtype == compute_dtype, got "
                          f"{rcfg.param_dtype!r} and {rcfg.compute_dtype!r}")
@@ -83,6 +82,17 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     def init(seed: int) -> dict:
         gen = torch.Generator(device=device).manual_seed(seed)
         return LM.init_lm(cfg, gen, dt)
+
+    def loss(p, b):
+        return LM.lm_loss(cfg, p, b, rcfg)
+
+    if cfg.rwkv:
+        def no_serving(*_a):
+            require_kv_serving(cfg)
+
+        return Model(cfg=cfg, rcfg=rcfg, device=device, init=init, loss=loss,
+                     prefill=no_serving, decode_step=no_serving, init_cache=no_serving,
+                     decode_state=DecodeState(kind="recurrent"))
 
     # right-padded batched prefill and the block pool are both exact only
     # for full causal attention (the reference's ragged_ok / pool_ok gates,
@@ -102,7 +112,7 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     return Model(
         cfg=cfg, rcfg=rcfg, device=device,
         init=init,
-        loss=_no_loss,
+        loss=loss,
         prefill=lambda p, b, ml: LM.lm_prefill(cfg, p, b, rcfg, ml),
         decode_step=lambda p, c, t: LM.lm_decode_step(cfg, p, c, t, rcfg),
         init_cache=lambda bsz, ml: LM.init_cache(cfg, bsz, ml, dt, device),

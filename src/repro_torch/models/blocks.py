@@ -1,6 +1,7 @@
-"""Per-layer decoder blocks (port of ``repro/models/blocks.py``, dense branch).
+"""Per-layer decoder blocks (port of ``repro/models/blocks.py``, dense and rwkv).
 
     init_block(gen, cfg, dtype)                      -> one layer's params
+    block_train(cfg, bp, x)                               -> x  (full sequence, no cache)
     block_prefill(cfg, bp, x, rope, span)                 -> (x, {"k", "v"})
     block_decode(cfg, bp, x, ck, cv, rope, rows, valid)   -> x  (ck/cv in place)
     block_decode_paged(cfg, bp, x, kp, vp, rope, rows, block_tables, p_eff)
@@ -11,10 +12,14 @@ assembly computes them once per forward for all layers.
 
 The layer-stacked cache is allocated whole by
 :func:`repro_torch.models.attention.init_kv_cache`, so the reference's
-one-layer ``init_cache_layer`` has no counterpart here.
+one-layer ``init_cache_layer`` has no counterpart here.  The reference's
+per-layer MoE auxiliary loss is 0 for both families here, so
+:func:`block_train` returns x alone.
 
-Other families (MoE, SSM, RWKV, the hybrid shared block) are not ported yet
-(ROADMAP §1 item 10); :func:`require_dense` names that item.
+rwkv blocks train (``block_train``) but do not serve yet: recurrent serving
+comes with the ``RecurrentBackend`` (ROADMAP §1).  Other families (MoE,
+SSM, the hybrid shared block, enc-dec, frontends) are not ported yet
+(ROADMAP §1 item 10); :func:`require_ported` names that item.
 """
 
 from __future__ import annotations
@@ -25,23 +30,47 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import apply_mlp, init_mlp, init_rmsnorm, rmsnorm
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.rwkv or cfg.n_experts or cfg.frontend
-            or cfg.n_enc_layers):
+def require_ported(cfg: ModelConfig) -> None:
+    """Dense decoder LMs and rwkv6 are ported; other families raise."""
+    if cfg.rwkv:
+        return
+    if (cfg.family != "dense" or cfg.n_experts or cfg.frontend or cfg.n_enc_layers):
         raise NotImplementedError(
             f"{cfg.arch_id}: family {cfg.family!r} is not ported to repro_torch yet "
-            f"(ROADMAP §1 item 10, other families); only dense decoder LMs are")
+            f"(ROADMAP §1 item 10, other families); dense decoder LMs and rwkv6 are")
+
+
+def require_kv_serving(cfg: ModelConfig) -> None:
+    """The serving entry points take families with a K/V cache: rwkv's
+    recurrent state is served by the ``RecurrentBackend``, not ported yet."""
+    require_ported(cfg)
+    if cfg.rwkv:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: recurrent serving (the RecurrentBackend; rwkv/ssm prefill and "
+            f"decode) is not ported to repro_torch yet (ROADMAP §1 item 13); rwkv6 trains")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> dict:
-    require_dense(cfg)
+    require_ported(cfg)
     d = cfg.d_model
-    return {"ln1": init_rmsnorm(d, dtype, gen.device), "ln2": init_rmsnorm(d, dtype, gen.device),
-            "attn": attn.init_attention(gen, cfg, dtype),
+    ln = lambda: init_rmsnorm(d, dtype, gen.device)
+    if cfg.rwkv:
+        return {"ln1": ln(), "ln2": ln(), "rwkv": rwkv_mod.init_rwkv6(gen, cfg, dtype)}
+    return {"ln1": ln(), "ln2": ln(), "attn": attn.init_attention(gen, cfg, dtype),
             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.glu, dtype)}
+
+
+def block_train(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
+    """One layer over a full sequence from an empty state (training)."""
+    if cfg.rwkv:
+        x = x + rwkv_mod.apply_rwkv6_tmix(bp["rwkv"], cfg, rmsnorm(bp["ln1"], x))
+        return x + rwkv_mod.apply_rwkv6_cmix(bp["rwkv"], cfg, rmsnorm(bp["ln2"], x))
+    x = x + attn.attention(bp["attn"], cfg, rmsnorm(bp["ln1"], x), causal=True)
+    return x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
 
 
 def block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor, rope: attn.Rope,

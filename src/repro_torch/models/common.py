@@ -1,4 +1,5 @@
-"""Shared layers: norms, RoPE, MLP, embeddings (port of ``repro/models/common.py``).
+"""Shared layers: norms, RoPE, MLP, embeddings, the chunked cross-entropy
+(port of ``repro/models/common.py``).
 
 Plain functions on dicts of tensors: ``init_*`` build param dicts on a given
 device from an explicit ``torch.Generator``, ``apply_*`` consume them.
@@ -12,6 +13,7 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -117,3 +119,39 @@ def embed_tokens(params: dict, tokens: torch.Tensor, compute_dtype: torch.dtype)
 
 def init_head(gen: torch.Generator, d_model: int, vocab: int, dtype: torch.dtype) -> dict:
     return {"w": truncated_normal((d_model, pad_vocab(vocab)), d_model ** -0.5, dtype, gen)}
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _xent_sum(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+              vocab: int) -> torch.Tensor:
+    """Sum over positions of the CE of ``x @ w`` (fp32 logits, padded vocab
+    columns masked to -1e30)."""
+    logits = (x @ w.to(x.dtype)).float()
+    vp = logits.shape[-1]
+    if vp != vocab:
+        pad = torch.arange(vp, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_xent(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab: int,
+                 chunk: int = 1024) -> torch.Tensor:
+    """Mean CE of ``x @ w`` against labels, one T-chunk of logits at a time.
+
+    x: (B, T, D); w: (D, Vp); labels: (B, T).  With grad on, each chunk is
+    checkpointed, so its (B, chunk, Vp) fp32 logits are recomputed in the
+    backward instead of being kept: (B, T, Vp) logits never exist at once
+    (the reference scans over chunks for the same reason)."""
+    b, t, _ = x.shape
+    xent = _xent_sum
+    if torch.is_grad_enabled():
+        xent = lambda *a: checkpoint(_xent_sum, *a, use_reentrant=False)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, t, chunk):
+        total = total + xent(x[:, lo:lo + chunk], w, labels[:, lo:lo + chunk], vocab)
+    return total / (b * t)

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense family (port of ``repro/models/lm.py``).
+"""Decoder-only LM assembly, dense and rwkv families (port of ``repro/models/lm.py``).
 
 Params::
 
@@ -12,6 +12,9 @@ Cache (decode), dense lanes or a block pool::
     {"layers": {"k": (L, B, span, KVH, Dh), "v": ...}, "pos": (B,) int32}
     {"layers": {"k": (L, NB + 1, bs, KVH, Dh), "v": ...}, "pos": (B,) int32}
 
+Training (:func:`lm_loss`) runs for both families; serving (prefill, decode,
+caches) for the dense family only.
+
 Decode writes each step's K/V into ``cache["layers"]`` IN PLACE (the
 reference donates the buffers to jit instead) and returns a cache dict with
 the advanced ``pos``.
@@ -22,12 +25,13 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import cache_span, decode_slots, init_kv_cache, paged_slots
-from repro_torch.models.common import (embed_tokens, init_embed, init_head, init_rmsnorm,
-                                       rmsnorm, rope_tables)
+from repro_torch.models.common import (chunked_xent, embed_tokens, init_embed, init_head,
+                                       init_rmsnorm, rmsnorm, rope_tables)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -52,6 +56,42 @@ def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor
     if cfg.tie_embeddings:
         return (h * cfg.d_model ** -0.5) @ params["embed"]["tok"].t().to(h.dtype)
     return h @ params["head"]["w"].to(h.dtype)
+
+
+def _scan_train(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                rcfg: RunConfig) -> torch.Tensor:
+    """Every block over the full sequence; with ``rcfg.remat`` (and grad on)
+    each block is checkpointed, its activations recomputed in the backward
+    (the reference's ``jax.checkpoint`` of the scan body)."""
+    remat = rcfg.remat and torch.is_grad_enabled()
+    for bp in params["blocks"]:
+        if remat:
+            x = checkpoint(B.block_train, cfg, bp, x, use_reentrant=False)
+        else:
+            x = B.block_train(cfg, bp, x)
+    return x
+
+
+def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
+            rcfg: RunConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE of ``batch["tokens"]`` (B, T): (loss, {"ce", "aux"}).
+    ``aux`` (the reference's MoE balance loss, added to the CE with weight
+    0.01) is 0 for the ported families, so the loss is the CE."""
+    if "frontend" in batch:
+        raise NotImplementedError("frontend batches ([audio]/[vlm] stubs) are not ported to "
+                                  "repro_torch yet (ROADMAP §1 item 10, other families)")
+    cdt = dtype_of(rcfg.compute_dtype)
+    tokens = batch["tokens"].long()
+    x = embed_tokens(params["embed"], tokens, cdt)
+    x = _scan_train(cfg, params, x, rcfg)
+    h = rmsnorm(params["final_ln"], x)[:, :-1]
+    if cfg.tie_embeddings:        # head_logits' scaling: on h, not on a copy of the table
+        h, w = h * cfg.d_model ** -0.5, params["embed"]["tok"].t()
+    else:
+        w = params["head"]["w"]
+    ce = chunked_xent(h, w, tokens[:, 1:], cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce, {"ce": ce, "aux": aux}
 
 
 def _prefill_trunk(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
@@ -140,7 +180,7 @@ def lm_decode_step_pool(cfg: ModelConfig, params: dict, cache: dict, tokens: tor
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                device) -> dict:
-    B.require_dense(cfg)
+    B.require_kv_serving(cfg)
     return {"layers": init_kv_cache(cfg, batch, max_len, dtype, device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -150,7 +190,7 @@ def init_pool_cache(cfg: ModelConfig, n_lanes: int, n_blocks: int, block_size: i
     """Pooled KV cache: ``n_blocks`` usable blocks + 1 sink (block id 0),
     sized by live tokens rather than lanes x worst-case length; per-lane
     block tables (backend-owned) map logical positions to pool slots."""
-    B.require_dense(cfg)
+    B.require_kv_serving(cfg)
     shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)},

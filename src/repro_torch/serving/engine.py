@@ -509,8 +509,13 @@ class ServeEngine:
     def active(self) -> int:
         return sum(s is not None for s in self.slots)
 
+    @torch.no_grad()
     def step(self) -> int:
-        """Admit + one decode step for all active lanes. Returns #active."""
+        """Admit + one decode step for all active lanes. Returns #active.
+
+        Every prefill and decode dispatch happens here, with grad mode off:
+        params that require grad (fresh from a trainer) build no autograd
+        graph and keep no activations."""
         # grow RUNNING lanes before admission takes the last free blocks —
         # else a fresh admission pays a whole prefill only to be the LIFO
         # victim of an older lane's growth this same step

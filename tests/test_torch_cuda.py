@@ -12,6 +12,8 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import rmsnorm as krms
+from repro_torch.kernels import rwkv6_scan as krwkv
+from repro_torch.models.rwkv import rwkv6_scan_plain
 
 # |kernel - plain| <= tol * max(1, |plain|): fp32 differs only in summation
 # order; bf16 results are rounded to 8 mantissa bits on both sides
@@ -166,9 +168,10 @@ def test_ops_launch_kernels_and_count(cuda_device):
     ops.paged_decode_attention(q[:, :1].contiguous(), pool, pool,
                                torch.tensor([[2, 1]], dtype=torch.int32, device=cuda_device),
                                torch.tensor([6], dtype=torch.int32, device=cuda_device), 0.2)
+    ops.rwkv6_scan(q, q, q, torch.full_like(q, 0.9), torch.zeros(4, 32, device=cuda_device))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1, "decode_attention": 1,
-                                   "paged_decode_attention": 1, "rmsnorm": 1}
+                                   "paged_decode_attention": 1, "rmsnorm": 1, "rwkv6_scan": 1}
     with pytest.raises(ValueError, match="contiguous"):
         kfa.flash_attention_cuda(q.transpose(1, 2), k, k)
 
@@ -192,3 +195,134 @@ def test_seeded_sampling_on_the_card_is_placement_independent(cuda_device):
     assert a == draws((0, 1, 2), 3)
     assert a == draws((2, 0, 1), 4)
     assert len({t for toks in a.values() for t in toks}) > 3      # actually stochastic
+
+
+def _rwkv_inputs(gen, dtype, b, t, h, dk, min_log_decay):
+    """r/k/v in ``dtype``; fp32 log-decay uniform in [min_log_decay, 0]; u ~ 0.3 N."""
+    r, k, v = (_rand(gen, dtype, b, t, h, dk) for _ in range(3))
+    lw = min_log_decay * torch.rand((b, t, h, dk), generator=gen, device=gen.device)
+    return r, k, v, lw, 0.3 * _rand(gen, torch.float32, h, dk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dk,min_log_decay", [
+    (2, 128, 4, 32, -0.5),
+    (1, 100, 2, 64, -0.5),              # T not a multiple of the chunk
+    (2, 37, 3, 32, -0.1),               # T shorter than three chunks, ragged
+    (1, 1, 2, 64, -0.5),                # one token
+    (8, 512, 32, 64, -0.05),            # rwkv6-1.6b's training shape
+    (1, 200, 2, 64, -5.0),              # strong decay: the TPU formula overflows
+])
+def test_rwkv6_kernel(cuda_device, dtype, b, t, h, dk, min_log_decay):
+    """Kernel against the plain chunked version: fp32 within 3e-5 of
+    max|ref| (the reference kernel's tolerance), bf16 within 2e-2 x
+    max(1, |ref|); fp32 also against the token recurrence."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t * h + dk)
+    r, k, v, lw, u = _rwkv_inputs(gen, dtype, b, t, h, dk, min_log_decay)
+    got = krwkv.rwkv6_cuda(r, k, v, lw, u)
+    ref = krwkv.rwkv6_chunked_plain(r, k, v, lw, u)
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.bfloat16:
+        _assert_close(got, ref, dtype)
+        return
+    scale = ref.abs().max()
+    assert (got - ref).abs().max() <= 3e-5 * scale
+    if t <= 200:
+        rec, _ = rwkv6_scan_plain(r, k, v, torch.exp(lw), u)
+        assert (got - rec).abs().max() <= 3e-5 * rec.abs().max()
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    r, k, v, lw, u = _rwkv_inputs(gen, torch.float32, 1, 16, 2, 32, -0.5)
+    with pytest.raises(TypeError, match="share"):
+        krwkv.rwkv6_cuda(r, k.bfloat16(), v, lw, u)
+    with pytest.raises(TypeError, match="float32"):
+        krwkv.rwkv6_cuda(r, k, v, lw.bfloat16(), u)
+    with pytest.raises(ValueError, match="head dims"):
+        krwkv.rwkv6_cuda(*(a[..., :16].contiguous() for a in (r, k, v, lw)), u[:, :16].contiguous())
+    with pytest.raises(ValueError, match="head dims"):
+        krwkv.rwkv6_cuda(*(a.repeat(1, 1, 1, 4) for a in (r, k, v, lw)), u.repeat(1, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        krwkv.rwkv6_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, lw, u)
+    with pytest.raises(ValueError, match="shapes"):
+        krwkv.rwkv6_cuda(r, k, v, lw, u[:1])
+
+
+def _grads(fn, xs, seed=1):
+    xs = [x.detach().clone().requires_grad_(True) for x in xs]
+    out = fn(*xs)
+    g = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(seed),
+                    device=out.device).to(out.dtype)
+    return torch.autograd.grad(out, xs, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradients_through_the_kernels_match_plain(cuda_device, dtype):
+    """The autograd wrappers of ops (kernel forward, backward through the
+    plain version) give the plain versions' gradients: every input gets
+    one, within the forward tolerances."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = _rand(gen, dtype, 2, 80, 4, 32), _rand(gen, dtype, 2, 80, 2, 32), \
+        _rand(gen, dtype, 2, 80, 2, 32)
+    x, s = _rand(gen, dtype, 24, 256), 1 + 0.1 * _rand(gen, dtype, 256)
+    r, kk, vv, lw, u = _rwkv_inputs(gen, dtype, 2, 40, 2, 32, -1.0)
+    w = torch.exp(lw)
+    cases = [
+        (lambda *a: ops.flash_attention(*a), lambda *a: kfa.flash_attention_plain(*a),
+         [q, k, v]),
+        (lambda *a: ops.rmsnorm(*a), lambda *a: krms.rmsnorm_plain(*a), [x, s]),
+        (lambda *a: ops.rwkv6_scan(*a),
+         lambda r, k, v, w, u: krwkv.rwkv6_chunked_plain(
+             r, k, v, torch.log(torch.clamp(w.float(), min=1e-38)), u), [r, kk, vv, w, u]),
+    ]
+    ops.reset_launch_counts()
+    for fn, plain, xs in cases:
+        for a, b in zip(_grads(fn, xs), _grads(plain, xs)):
+            assert a is not None and a.shape == b.shape
+            _assert_close(a, b, a.dtype)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["rmsnorm"] == counts["rwkv6_scan"] == 1
+
+
+@pytest.mark.cuda
+def test_serving_kernels_refuse_inputs_that_need_a_gradient(cuda_device):
+    q = torch.randn(1, 1, 4, 32, device=cuda_device, requires_grad=True)
+    ck = torch.randn(1, 8, 2, 32, device=cuda_device)
+    valid = torch.ones(1, 8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(q, ck, ck, valid, 0.2)
+    pool = ck.reshape(2, 4, 2, 32)
+    args = (pool, pool, torch.tensor([[1, 0]], dtype=torch.int32, device=cuda_device),
+            torch.tensor([3], dtype=torch.int32, device=cuda_device), 0.2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.paged_decode_attention(q, *args)
+    with torch.no_grad():
+        ops.decode_attention(q, ck, ck, valid, 0.2)
+        ops.paged_decode_attention(q, *args)
+
+
+@pytest.mark.cuda
+def test_ops_skip_autograd_when_no_gradient_is_needed(cuda_device):
+    """Under no_grad, or on inputs that need no gradient, the wrapped ops
+    launch their kernel directly (no graph node); with a gradient needed
+    they return a tensor autograd can differentiate."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x, s = _rand(gen, torch.float32, 8, 256), _rand(gen, torch.float32, 256)
+    q = _rand(gen, torch.float32, 1, 16, 2, 32)
+    r, k, v, lw, u = _rwkv_inputs(gen, torch.float32, 1, 16, 2, 32, -0.5)
+    calls = [lambda x, s: ops.rmsnorm(x, s), lambda q: ops.flash_attention(q, q, q),
+             lambda r, k, v, w, u: ops.rwkv6_scan(r, k, v, w, u)]
+    inputs = [[x, s], [q], [r, k, v, torch.exp(lw), u]]
+    ops.reset_launch_counts()
+    for fn, xs in zip(calls, inputs):
+        assert fn(*xs).grad_fn is None
+        with torch.no_grad():
+            assert fn(*(a.detach().requires_grad_(True) for a in xs)).grad_fn is None
+        assert fn(*(a.detach().requires_grad_(True) for a in xs)).grad_fn is not None
+    assert ops.launch_counts() == {"flash_attention": 3, "decode_attention": 0,
+                                   "paged_decode_attention": 0, "rmsnorm": 3, "rwkv6_scan": 3}

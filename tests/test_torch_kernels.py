@@ -24,6 +24,7 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import rmsnorm as krms
+from repro_torch.kernels import rwkv6_scan as krwkv
 
 F32_TOL = 3e-5      # fp32: same algorithm, sums in another order
 BF16_TOL = 2e-2     # bf16: both sides round fp32 results to 8 mantissa bits
@@ -211,8 +212,12 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     assert torch.equal(ops.paged_decode_attention(q[:, :1], pool, pool, tables, pos, 0.2),
                        kpaged.paged_decode_attention_plain(q[:, :1], pool, pool, tables, pos,
                                                            0.2))
+    w = torch.full_like(q, 0.9)
+    u = torch.zeros(4, 32)
+    assert torch.equal(ops.rwkv6_scan(q, q, q, w, u),
+                       krwkv.rwkv6_chunked_plain(q, q, q, torch.log(w), u))
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "paged_decode_attention": 0, "rmsnorm": 0}
+                                   "paged_decode_attention": 0, "rmsnorm": 0, "rwkv6_scan": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -231,3 +236,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         kpaged.paged_decode_attention_cuda(q[:, :1], q[0, :, :2][None], q[0, :, :2][None],
                                            torch.zeros(1, 1, dtype=torch.int32),
                                            torch.zeros(1, dtype=torch.int32), 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        krwkv.rwkv6_cuda(q, q, q, q, torch.zeros(4, 32))

@@ -59,9 +59,12 @@ def _tokens(seed, shape):
 def test_configs_are_copies():
     cfg, tcfg = _cfgs(4)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(tcfg)
-    full = dataclasses.asdict(get_config("granite-8b"))
-    assert full == dataclasses.asdict(tconfigs.get_config("granite-8b"))
-    assert tconfigs.ARCH_IDS == ["granite-8b"]
+    for arch in ("granite-8b", "rwkv6-1.6b"):
+        full = dataclasses.asdict(get_config(arch))
+        assert full == dataclasses.asdict(tconfigs.get_config(arch))
+        assert dataclasses.asdict(reduced_config(get_config(arch))) == dataclasses.asdict(
+            tconfigs.reduced_config(tconfigs.get_config(arch)))
+    assert tconfigs.ARCH_IDS == ["granite-8b", "rwkv6-1.6b"]
 
 
 def test_prefill_and_decode_logits_match_jax(pair):
@@ -172,15 +175,28 @@ def test_port_init_shapes_match_jax_and_are_seeded():
 
 
 def test_build_model_gates_unported_families_and_training():
+    """rwkv builds and trains, its serving entry points name the
+    recurrent-serving item; granite's loss is finite; moe and ssm still
+    raise naming their ROADMAP item."""
     _, tcfg = _cfgs()
     trc = tconfigs.RunConfig(param_dtype="float32", compute_dtype="float32")
-    for kw in (dict(family="moe", n_experts=4, top_k=2), dict(family="ssm", ssm_state=16),
-               dict(rwkv=True)):
+    for kw in (dict(family="moe", n_experts=4, top_k=2), dict(family="ssm", ssm_state=16)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild_model(dataclasses.replace(tcfg, **kw), trc, device="cpu")
+    rwkv = tbuild_model(tconfigs.reduced_config(tconfigs.get_config("rwkv6-1.6b")), trc,
+                        device="cpu")
+    assert rwkv.decode_state.kind == "recurrent" and not rwkv.decode_state.poolable
+    toks = torch.as_tensor(_tokens(2, (2, 12)))
+    for call in (lambda: rwkv.prefill(rwkv.init(0), {"tokens": toks}, 16),
+                 lambda: rwkv.decode_step({}, {}, toks[:, :1]), lambda: rwkv.init_cache(2, 16)):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 13"):
+            call()
     model = tbuild_model(tcfg, trc, device="cpu")
+    loss, aux = model.loss(model.init(0), {"tokens": toks})
+    assert loss.shape == () and torch.isfinite(loss) and float(aux["aux"]) == 0.0
+    assert torch.isfinite(rwkv.loss(rwkv.init(0), {"tokens": toks})[0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss({}, {})
+        model.loss(model.init(0), {"tokens": toks, "frontend": torch.zeros((2, 4, 128))})
     with pytest.raises(ValueError, match="param_dtype"):
         tbuild_model(tcfg, tconfigs.RunConfig(param_dtype="float32"), device="cpu")
     assert model.device == torch.device("cpu")
@@ -188,6 +204,35 @@ def test_build_model_gates_unported_families_and_training():
                                                chunk_size=16), trc, device="cpu")
     assert chunked.decode_state.batched_prefill is None
     assert model.decode_state.batched_prefill is not None
+
+
+@pytest.mark.parametrize("kv_blocks", [None, 12], ids=["dense", "paged"])
+def test_serving_params_that_require_grad_builds_no_graph(kv_blocks):
+    """Params straight from a trainer (requires_grad) serve the same tokens
+    as detached ones and save no tensor for a backward."""
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    _, tcfg = _cfgs()
+    model = tbuild_model(tcfg, tconfigs.RunConfig(param_dtype="float32",
+                                                  compute_dtype="float32"), device="cpu")
+    params = model.init(0)
+    prompts = [_tokens(3, (9,)), _tokens(4, (5,))]
+
+    def serve(p):
+        eng = ServeEngine(model, p, max_batch=2, max_len=32,
+                          config=EngineConfig(kv_blocks=kv_blocks, kv_block_size=4))
+        for pr in prompts:
+            eng.submit(pr, max_new=4)
+        return [r.out_tokens for r in eng.run_until_drained()], eng
+
+    want, _ = serve(params)
+    for t in jax.tree.leaves(params):
+        t.requires_grad_(True)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(1) or t, lambda t: t):
+        got, eng = serve(params)
+    assert got == want
+    assert not saved
+    assert not any(t.requires_grad for t in jax.tree.leaves(eng.backend.cache))
 
 
 def test_move_params_keeps_values():
