@@ -8,11 +8,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
 1. require a CUDA device; print ``nvidia-smi``'s card name and power limit;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card at
-   granite-8b shapes and the rwkv6 kernel at rwkv6-1.6b's training shape
-   (the decode kernel also on a lane with no valid position, the paged
-   kernel over 16 lanes' block tables with shared blocks, the rwkv6 kernel
-   also against the token recurrence under strong decay), and time kernel,
-   plain version and a library call (and the rwkv6 backward);
+   granite-8b shapes, the rwkv6 kernel at rwkv6-1.6b's training shape and
+   the SSD kernel, flash (head_dim 112) and RMSNorm at zamba2-7b's (the
+   decode kernel also on a lane with no valid position, the paged kernel
+   over 16 lanes' block tables with shared blocks, the rwkv6 and SSD
+   kernels also against their token recurrences under strong decay), and
+   time kernel, plain version and a library call (and the rwkv6 and SSD
+   backwards);
 4. reduced granite in fp32 with the same weights on the card (kernels) and
    on the CPU (plain versions): logits and greedy ServeEngine tokens agree,
    over dense lanes and over the paged pool with the prefix cache (a run
@@ -30,21 +32,28 @@ Phases, each of which raises on failure (the script then exits nonzero):
    chat requests behind a shared 512-token system prompt, then 4 repeats
    (full hits), on a pool small enough to preempt; the paged kernel runs 36
    times a decode step and the dense decode kernel never;
-8. ``parity_train``: reduced rwkv6 and reduced granite (4 layers, fp32),
-   the same weights on the card (kernels, their gradients through the
-   autograd wrappers) and on the CPU (plain versions): loss, every
-   gradient leaf and the losses of 3 AdamW steps agree;
+8. ``parity_train``: reduced rwkv6, granite and zamba2 (4 layers, fp32),
+   and rwkv6-1.6b and zamba2-7b at full width cut to 2 layers, the same
+   weights on the card (kernels, their gradients through the autograd
+   wrappers) and on the CPU (plain versions): loss, every gradient leaf and
+   the losses of 3 AdamW steps agree;
 9. ``train``: full-width rwkv6-1.6b (24 layers, bf16, random seeded
    weights) trained 20 steps through the launcher's ``Trainer``, step
    function and AdamW on 8 x 512-token ``TokenPipeline`` batches; one
    checkpoint written, restored and found bit-equal; step time, tok/s,
-   MFU, peak memory and a profile of a step.
+   MFU, peak memory and a profile of a step;
+10. ``train_hybrid``: zamba2-7b at full width cut to 42 layers (seven
+   periods of its shared block; the whole model's params, grads and
+   moments do not fit one card), bf16, trained 10 steps the same way, no
+   checkpoint; step time, tok/s, MFU, peak memory and a profile of a step.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
 no paged one, a paged path flash, paged and RMSNorm kernels and no dense
 decode one, the rwkv6 training path the rwkv6 kernel (24 times a forward,
-twice that under remat) and RMSNorm and no decode kernel.
+twice that under remat) and RMSNorm and no decode kernel, the zamba2
+training path the SSD kernel (42 times a forward, 84 a step), flash (7
+and 14) and RMSNorm and no decode kernel.
 
 The line before the last is a JSON object of per-kernel numbers, the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -91,7 +100,7 @@ MODEL_TOL = 1e-4
 BF16_MODEL_TOL = 0.25
 
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
-          "train")
+          "train", "train_hybrid")
 OPT_IN = ("lr_probe",)
 
 # the kernels each serving path must launch; the other decode kernel must not
@@ -100,10 +109,12 @@ PAGED_PATH = ("flash_attention", "paged_decode_attention", "rmsnorm")
 # the kernels each training path must launch; no serving kernel may
 RWKV_TRAIN_PATH = ("rwkv6_scan", "rmsnorm")
 DENSE_TRAIN_PATH = ("flash_attention", "rmsnorm")
+HYBRID_TRAIN_PATH = ("mamba2_ssd", "flash_attention", "rmsnorm")
 SERVING_ONLY = ("decode_attention", "paged_decode_attention")
-# rwkv6 kernel vs plain version in fp32: |err| <= RWKV_F32_TOL * max|ref|, the
-# reference kernel's own tolerance (tests/test_kernels.py)
-RWKV_F32_TOL = 3e-5
+# rwkv6 and SSD kernels vs plain version or recurrence in fp32: |err| <=
+# SCAN_F32_TOL * max|ref|, the reference kernels' own tolerance
+# (tests/test_kernels.py)
+SCAN_F32_TOL = 3e-5
 # card vs CPU training parity, fp32: loss relative, each gradient leaf
 # |err| <= GRAD_TOL * max(1, max|g|), the losses of 3 AdamW steps relative
 TRAIN_LOSS_TOL = 1e-5
@@ -177,6 +188,16 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float,
     return err.max().item()
 
 
+def check_scan_f32(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """fp32 scan output within SCAN_F32_TOL x max|ref|; returns max|err| / max|ref|."""
+    worst = (got - ref).abs().max().item()
+    if got.shape != ref.shape or not torch.isfinite(got).all() or \
+            worst > SCAN_F32_TOL * ref.abs().max().item():
+        raise AssertionError(f"{name}: max |err| {worst:.3e} beyond {SCAN_F32_TOL} x "
+                             f"max|ref| {ref.abs().max().item():.3e}, or non-finite")
+    return worst / ref.abs().max().item()
+
+
 # ---------------------------------------------------------------------------
 # phase 1-2
 # ---------------------------------------------------------------------------
@@ -222,8 +243,9 @@ def phase_kernels(results: dict) -> None:
     bf = torch.bfloat16
 
     # -- rmsnorm: granite-8b's (8192, 4096) prefill-sized and (8, 4096)
-    # decode-sized rows, and rwkv6-1.6b's training rows (8 x 512, 2048)
-    for rows, d in ((8192, 4096), (8, 4096), (4096, 2048)):
+    # decode-sized rows, rwkv6-1.6b's training rows (8 x 512, 2048), and
+    # zamba2-7b's: the block norms (8 x 512, 3584) and the gated norm (8 x 512, 7168)
+    for rows, d in ((8192, 4096), (8, 4096), (4096, 2048), (4096, 3584), (4096, 7168)):
         sets = [(_rand((rows, d), bf, gen), (1 + 0.1 * _rand((d,), torch.float32, gen)).to(bf))
                 for _ in range(n_sets(rows * d * 2 * 2))]
         x, s = sets[0]
@@ -270,6 +292,7 @@ def phase_kernels(results: dict) -> None:
                 replaces="src/repro/kernels/flash_attention.py:88", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 shape=f"B={b} T={t} H={h} G={g} D={d} causal bf16")
+    flash_d112(results, gen)
 
     # -- decode attention: B=8 lanes, S=1024, random per-lane filled length
     b, s = 8, 1024
@@ -326,6 +349,121 @@ def phase_kernels(results: dict) -> None:
         shape=f"B={b} S={s} H={h} G={g} D={d} bf16, {live} live positions")
     paged_kernel(results, gen)
     rwkv6_kernel(results, gen)
+    ssd_kernel(results, gen)
+
+
+def flash_d112(results: dict, gen: torch.Generator) -> None:
+    """Flash at zamba2-7b's shared block: B 8, T 512, 32 heads over 32 KV
+    heads of 112, causal, bf16 and fp32 against the plain version."""
+    from repro_torch.kernels import flash_attention as kfa
+    b, t, h, g, d = 8, 512, 32, 32, 112
+    q, k, v = (_rand((b, t, n, d), torch.bfloat16, gen) for n in (h, g, g))
+    err = check_close("flash D=112 bf16", kfa.flash_attention_cuda(q, k, v),
+                      kfa.flash_attention_plain(q, k, v), BF16_TOL, relative=True)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    check_close("flash D=112 f32", kfa.flash_attention_cuda(q32, k32, v32),
+                kfa.flash_attention_plain(q32, k32, v32), F32_TOL, relative=False)
+    ms = sync_time_ms([lambda: kfa.flash_attention_cuda(q, k, v)], iters=10)
+    plain_ms = sync_time_ms([lambda: kfa.flash_attention_plain(q, k, v)], iters=5)
+    lib_ms = sync_time_ms([lambda: _sdpa_gqa(q, k, v, is_causal=True)], iters=10)
+    b_ms, b_by = bound(4.0 * b * h * d * (t * (t + 1) // 2), PEAK_BF16_FLOPS,
+                       2 * (b * t * h * d + 2 * b * t * g * d))
+    log(f"[kernels] flash B={b} T={t} H={h} G={g} D={d} causal bf16 (zamba2's shared block): "
+        f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+        f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    results["flash_attention"]["zamba2_shape"] = dict(
+        shape=f"B={b} T={t} H={h} G={g} D={d} causal bf16", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def ssd_flops(b: int, t: int, h: int, p: int, n: int, c: int = 64) -> float:
+    """fp32 operations the chunked SSD needs (chunk ``c``), a multiply-add
+    counted as 2, exponentials left out: per chunk and (batch, head) the
+    inter term C S0^T (2cNP) and its decay scale (cP), the scores C.B^T of
+    the c(c+1)/2 pairs s <= t (2N each) and their decay and dt scales (2
+    each), G x over those pairs (2P each), D x (2cP), the state update
+    (2cPN, its e^{la_c} scale PN) and the update weights (cP)."""
+    pairs = c * (c + 1) // 2
+    per_chunk = (2 * c * n * p + c * p + pairs * (2 * n + 2) + pairs * 2 * p + 2 * c * p
+                 + 2 * c * p * n + p * n + c * p)
+    return float(b * h * -(-t // c) * per_chunk)
+
+
+def ssd_kernel(results: dict, gen: torch.Generator) -> None:
+    """The SSD kernel at zamba2-7b's training shape (B 8, T 512, H 112, P 64,
+    N 64), x, B and C cut from one (B, T, 7296) conv output as the model
+    cuts them (strided views), dt and A as the model's init draws them
+    (dt = softplus(N(0,1) + dt_bias), A = -linspace(1, 16)): bf16 against
+    the plain chunked version; fp32 against the token recurrence at the
+    reference's decay (tests/test_kernels.py: dt = softplus(N(0,1)),
+    A = -exp(0.3 N)) and under strong decay (dt uniform in [0, 5], A = -16)
+    at a ragged T of 500."""
+    from repro_torch.kernels import mamba2_ssd as kssd
+    from repro_torch.kernels import ops
+    from repro_torch.models.ssm import mamba2_scan_plain
+    b, t, h, p, n = 8, 512, 112, 64, 64
+    d_in = h * p
+
+    def inputs(dtype, t=t, decay="model"):
+        xbc = _rand((b, t, d_in + 2 * n), dtype, gen)
+        x = xbc[..., :d_in].reshape(b, t, h, p)
+        bm, cm = xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
+        z = _rand((b, t, h), torch.float32, gen)
+        if decay == "model":
+            dt = F.softplus(z + float(np.log(np.expm1(0.01))))
+            a = -torch.linspace(1.0, 16.0, h, device="cuda")
+        elif decay == "reference":
+            dt = F.softplus(z)
+            a = -torch.exp(0.3 * _rand((h,), torch.float32, gen))
+        else:
+            dt = 5.0 * torch.rand((b, t, h), generator=gen, device="cuda")
+            a = torch.full((h,), -16.0, device="cuda")
+        return x, dt, a, bm, cm, 1.0 + 0.1 * _rand((h,), torch.float32, gen)
+
+    nbytes = (2 * b * t * h * p * 2 + 2 * b * t * n * 2 + b * t * h * 4 + 2 * h * 4
+              + b * h * p * n * 4)
+    sets = [inputs(torch.bfloat16) for _ in range(n_sets(nbytes))]
+    args = sets[0]
+    y, s = kssd.mamba2_ssd_cuda(*args)
+    ry, rs = kssd.mamba2_ssd_chunked_plain(*args)
+    err = check_close("ssd bf16 y", y, ry, BF16_TOL, relative=True)
+    check_scan_f32("ssd bf16 final state", s, rs)
+    rel = {}
+    for what, tt in (("reference", t), ("strong", 500)):
+        a32 = inputs(torch.float32, t=tt, decay=what)
+        y, s = kssd.mamba2_ssd_cuda(*a32)
+        ry, rs = mamba2_scan_plain(*a32)
+        rel[what] = max(check_scan_f32(f"ssd f32 {what} decay T={tt} y vs recurrence", y, ry),
+                        check_scan_f32(f"ssd f32 {what} decay T={tt} state vs recurrence", s, rs))
+        del a32, y, s, ry, rs
+    ms = sync_time_ms([lambda a=a: kssd.mamba2_ssd_cuda(*a) for a in sets])
+    plain_ms = sync_time_ms([lambda a=a: kssd.mamba2_ssd_chunked_plain(*a) for a in sets], iters=5)
+    # the autograd backward (autograd through the plain version, recomputed)
+    # of ops.mamba2_ssd at the training step's shape, bf16 like the model
+    xs = [a.detach().clone().requires_grad_(True) for a in args]
+    out, _ = ops.mamba2_ssd(*xs)
+    g = torch.randn_like(out)
+    grads = torch.autograd.grad(out, xs, g, retain_graph=True)
+    if any(x is None or not torch.isfinite(x.float()).all() for x in grads):
+        raise AssertionError("ssd backward: a missing or non-finite gradient")
+    bwd_ms = sync_time_ms([lambda: torch.autograd.grad(out, xs, g, retain_graph=True)],
+                          iters=5, warmup=1)
+    del out, grads, xs
+    flops = ssd_flops(b, t, h, p, n)
+    b_ms, b_by = bound(flops, PEAK_F32_FLOPS, nbytes)
+    log(f"[kernels] ssd B={b} T={t} H={h} P={p} N={n} bf16 (strided x, B, C): max_abs_err "
+        f"{err:.3e}; fp32 max|err|/max|ref| vs the recurrence {rel['reference']:.2e} at the "
+        f"reference's decay, {rel['strong']:.2e} under strong decay at T=500 (tol "
+        f"{SCAN_F32_TOL}); kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  backward (autograd "
+        f"through the plain version) {bwd_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    results["mamba2_ssd"] = dict(
+        name="mamba2_ssd", route="cuda", source="src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+        replaces="src/repro/kernels/mamba2_ssd.py:71", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes the SSD scan",
+        backward_ms=bwd_ms, shape=f"B={b} T={t} H={h} P={p} N={n} bf16, dt and A as the "
+                                  f"model's init")
 
 
 def paged_tables(rng: np.random.Generator, pos: np.ndarray, bs: int, max_blocks: int,
@@ -452,19 +590,12 @@ def rwkv6_kernel(results: dict, gen: torch.Generator) -> None:
     err = check_close("rwkv6 bf16", krwkv.rwkv6_cuda(*args), krwkv.rwkv6_chunked_plain(*args),
                       BF16_TOL, relative=True)
 
-    def f32_check(name, got, ref):
-        worst = (got - ref).abs().max().item()
-        if not torch.isfinite(got).all() or worst > RWKV_F32_TOL * ref.abs().max().item():
-            raise AssertionError(f"{name}: max |err| {worst:.3e} beyond {RWKV_F32_TOL} x "
-                                 f"max|ref| {ref.abs().max().item():.3e}, or non-finite")
-        return worst / ref.abs().max().item()
-
     a32 = [a.float() for a in args]
-    rel32 = f32_check("rwkv6 f32", krwkv.rwkv6_cuda(*a32), krwkv.rwkv6_chunked_plain(*a32))
+    rel32 = check_scan_f32("rwkv6 f32", krwkv.rwkv6_cuda(*a32), krwkv.rwkv6_chunked_plain(*a32))
     strong = inputs(torch.float32, lw=-5.0 * torch.rand((b, t, h, dk), generator=gen,
                                                           device="cuda"))
     rec, _ = rwkv6_scan_plain(*strong[:3], torch.exp(strong[3]), strong[4])
-    rel_strong = f32_check("rwkv6 f32 strong decay vs recurrence", krwkv.rwkv6_cuda(*strong),
+    rel_strong = check_scan_f32("rwkv6 f32 strong decay vs recurrence", krwkv.rwkv6_cuda(*strong),
                            rec)
     ms = sync_time_ms([lambda a=a: krwkv.rwkv6_cuda(*a) for a in sets])
     plain_ms = sync_time_ms([lambda a=a: krwkv.rwkv6_chunked_plain(*a) for a in sets], iters=5)
@@ -483,7 +614,7 @@ def rwkv6_kernel(results: dict, gen: torch.Generator) -> None:
     b_ms, b_by = bound(rwkv6_flops(b, t, h, dk), PEAK_F32_FLOPS, nbytes)
     log(f"[kernels] rwkv6 B={b} T={t} H={h} K={dk} bf16: max_abs_err {err:.3e}; fp32 "
         f"max|err|/max|ref| {rel32:.2e}, strong decay vs the recurrence {rel_strong:.2e} "
-        f"(tol {RWKV_F32_TOL}); kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  backward "
+        f"(tol {SCAN_F32_TOL}); kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  backward "
         f"(autograd through the plain version) {bwd_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
         f"{rwkv6_flops(b, t, h, dk) / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     results["rwkv6_scan"] = dict(
@@ -976,13 +1107,17 @@ def _loss_and_grads(model, params, tokens):
 
 
 def phase_parity_train(n_layers: int = 4, full_width_layers: int = 2) -> None:
-    """Reduced rwkv6 and reduced granite (``n_layers``), and rwkv6-1.6b at
-    full width (d_model 2048, 32 heads of 64, d_ff 7168, vocab 65536) cut to
-    ``full_width_layers``, in fp32 with the same weights on the card and the
-    CPU: the loss, every gradient leaf (through the kernels' autograd
-    wrappers on the card, at the training path's shapes in the full-width
-    case) and the losses of 3 AdamW steps of the launcher's step function
-    on TokenPipeline batches."""
+    """Reduced rwkv6, granite and zamba2 (``n_layers``; zamba2's shared block
+    fires at layers 0 and 2), rwkv6-1.6b at full width (d_model 2048, 32
+    heads of 64, d_ff 7168, vocab 65536) and zamba2-7b at full width
+    (d_model 3584, 112 SSM heads of 64, state 64, the shared block's 32
+    heads of 112, d_ff 14336, vocab 32000) cut to ``full_width_layers``
+    (zamba2's shared block fires once), in fp32 with the same weights on
+    the card and the CPU: the loss, every gradient leaf (through the
+    kernels' autograd wrappers on the card, at the training path's shapes
+    in the full-width cases) and the losses of 3 AdamW steps of the
+    launcher's step function on TokenPipeline batches of 4 x 128 tokens
+    (2 x 128 for full-width zamba2, whose CPU side is the slowest)."""
     from repro_torch.configs import RunConfig, get_config, reduced_config
     from repro_torch.convert import move_params
     from repro_torch.data.synthetic import DataConfig, TokenPipeline
@@ -991,16 +1126,19 @@ def phase_parity_train(n_layers: int = 4, full_width_layers: int = 2) -> None:
     from repro_torch.models.api import build_model
     from repro_torch.optim import adamw
     cases = [(f"{arch} reduced", dataclasses.replace(reduced_config(get_config(arch)),
-                                                     n_layers=n_layers), path)
-             for arch, path in (("rwkv6-1.6b", RWKV_TRAIN_PATH), ("granite-8b", DENSE_TRAIN_PATH))]
+                                                     n_layers=n_layers), path, 4)
+             for arch, path in (("rwkv6-1.6b", RWKV_TRAIN_PATH), ("granite-8b", DENSE_TRAIN_PATH),
+                                ("zamba2-7b", HYBRID_TRAIN_PATH))]
     cases.append(("rwkv6-1.6b full width", dataclasses.replace(
-        get_config("rwkv6-1.6b"), n_layers=full_width_layers), RWKV_TRAIN_PATH))
-    for arch, cfg, path in cases:
+        get_config("rwkv6-1.6b"), n_layers=full_width_layers), RWKV_TRAIN_PATH, 4))
+    cases.append(("zamba2-7b full width", dataclasses.replace(
+        get_config("zamba2-7b"), n_layers=full_width_layers), HYBRID_TRAIN_PATH, 2))
+    for arch, cfg, path, batch in cases:
         rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
         cpu, gpu = build_model(cfg, rcfg, device="cpu"), build_model(cfg, rcfg, device="cuda")
         p_cpu = cpu.init(0)
         toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                                                 size=(4, 128)))
+                                                                 size=(batch, 128)))
         ops.reset_launch_counts()
         l_g, g_g = _loss_and_grads(gpu, move_params(p_cpu, "cuda"), toks.cuda())
         counts = ops.launch_counts()
@@ -1017,7 +1155,8 @@ def phase_parity_train(n_layers: int = 4, full_width_layers: int = 2) -> None:
             grad_err = max(grad_err, e)
         # 3 AdamW steps of the launcher's step function on both devices
         opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=3, weight_decay=0.01)
-        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=4))
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                        global_batch=batch))
         losses = {}
         for dev, model in (("cuda", gpu), ("cpu", cpu)):
             params = move_params(p_cpu, dev)
@@ -1032,11 +1171,63 @@ def phase_parity_train(n_layers: int = 4, full_width_layers: int = 2) -> None:
             raise AssertionError(f"{arch} AdamW losses card {losses['cuda']} vs CPU "
                                  f"{losses['cpu']}")
         log(f"[parity-train] {arch} (d_model {cfg.d_model}, {cfg.n_layers} layers), fp32, "
-            f"4 x 128 tokens: loss card "
+            f"{batch} x 128 tokens: loss card "
             f"{l_g.item():.6f} vs CPU {l_c.item():.6f} (rel {loss_err:.2e}, tol "
             f"{TRAIN_LOSS_TOL}); {len(g_c)} gradient leaves, worst {grad_err:.2e} of max(1, "
             f"max|g|) (tol {GRAD_TOL}); 3 AdamW steps: losses card {losses['cuda']} vs CPU "
             f"{losses['cpu']} (worst rel {step_err:.2e}, tol {STEP_LOSS_TOL}); launches {counts}")
+
+
+def run_trainer(model, opt_cfg, pipe, params, n_steps: int, ckpt_dir: Path, ckpt_every: int):
+    """``n_steps`` of the launcher's step function through the Trainer from
+    ``params``, launch counts set to 0 just before: (trainer output, launch
+    counts, peak device bytes, wall s, a CUDA event recorded after each step)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_step_fn, token_batches
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    events = []
+
+    def on_metrics(step, rec):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    tr = Trainer(TrainerConfig(total_steps=n_steps, ckpt_every=ckpt_every, ckpt_dir=str(ckpt_dir),
+                               log_every=5),
+                 make_step_fn(model, opt_cfg), lambda: (params, adamw.init(params)),
+                 lambda start: token_batches(pipe, start, model.device), on_metrics=on_metrics)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, ops.launch_counts(), torch.cuda.max_memory_allocated(), wall, events
+
+
+def log_steps(tag: str, out: dict, events: list, warmup: int, batch: int, seq: int,
+              n_steps: int,
+              loss_before: float, loss_after: float, useful_params: int, what: str, peak: int,
+              wall: float) -> None:
+    """Step time (trainer's clock and card events, after ``warmup`` steps),
+    tok/s, MFU = 6 x ``useful_params`` x tokens / step time / 989 TFLOP/s,
+    losses and peak memory of a training run."""
+    losses = out["losses"]
+    host_ms = [r["step_s"] * 1e3 for r in out["history"][warmup:]]
+    dev_ms = [a.elapsed_time(b) for a, b in zip(events[warmup:], events[warmup + 1:])]
+    step_ms = float(np.median(host_ms))
+    tokens = batch * seq
+    flops = 6.0 * useful_params * tokens
+    log(f"[{tag}] {n_steps} steps of {batch} x {seq} tokens, lr {TRAIN_LR}: training loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, held-out batch {loss_before:.4f} -> "
+        f"{loss_after:.4f}; step after {warmup} warm-up steps: median {step_ms:.1f} ms by the "
+        f"trainer's clock (min {min(host_ms):.1f}, max {max(host_ms):.1f}), median "
+        f"{float(np.median(dev_ms)):.1f} ms between card events; {tokens / step_ms * 1e3:.0f} "
+        f"tok/s; MFU {flops / (step_ms / 1e3) / PEAK_BF16_FLOPS:.4f} (6 x {useful_params} "
+        f"{what} x {tokens} tokens per step / step time / 989 TFLOP/s bf16 dense; remat's "
+        f"recompute not counted as useful work); peak device memory {peak / 2**30:.2f} GiB; "
+        f"run wall {wall:.1f} s of which steps {sum(r['step_s'] for r in out['history']):.1f} s")
 
 
 def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
@@ -1052,11 +1243,9 @@ def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.convert import leaves
     from repro_torch.data.synthetic import DataConfig, TokenPipeline
-    from repro_torch.kernels import ops
     from repro_torch.launch.train import make_step_fn, token_batches
     from repro_torch.models.api import build_model
     from repro_torch.optim import adamw
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
     cfg, rcfg = get_config("rwkv6-1.6b"), RunConfig()
     batch, seq = 8, 512
     model = build_model(cfg, rcfg, device="cuda")
@@ -1080,25 +1269,8 @@ def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
         f"{cfg.vocab_size}: {n_params} params ({n_params - n_embed} outside the embedding and "
         f"head), bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
     loss_before = eval_loss(params)
-    events = []
-
-    def on_metrics(step, rec):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-
-    tr = Trainer(TrainerConfig(total_steps=n_steps, ckpt_every=n_steps, ckpt_dir=str(ckpt_dir),
-                               log_every=5),
-                 make_step_fn(model, opt_cfg), lambda: (params, adamw.init(params)),
-                 lambda start: token_batches(pipe, start, model.device), on_metrics=on_metrics)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = tr.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    out, counts, peak, wall, events = run_trainer(model, opt_cfg, pipe, params, n_steps,
+                                                  ckpt_dir, ckpt_every=n_steps)
     losses = out["losses"]
     check_train_path(counts, RWKV_TRAIN_PATH, "full-width rwkv6 training")
     per_fwd = cfg.n_layers * (2 if rcfg.remat else 1)
@@ -1109,21 +1281,8 @@ def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
     if not all(np.isfinite(losses)) or not loss_after < loss_before:
         raise AssertionError(f"training losses {losses}, held-out loss {loss_before} -> "
                              f"{loss_after}: not finite or not falling")
-    host_ms = [r["step_s"] * 1e3 for r in out["history"][warmup:]]
-    dev_ms = [a.elapsed_time(b) for a, b in zip(events[warmup:], events[warmup + 1:])]
-    step_ms = float(np.median(host_ms))
-    tokens = batch * seq
-    flops = 6.0 * (n_params - n_embed) * tokens
-    log(f"[train] {n_steps} steps of {batch} x {seq} tokens, lr {TRAIN_LR}: training loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, held-out batch {loss_before:.4f} -> "
-        f"{loss_after:.4f}; step after {warmup} warm-up steps: median {step_ms:.1f} ms by the "
-        f"trainer's clock (min {min(host_ms):.1f}, max {max(host_ms):.1f}), median "
-        f"{float(np.median(dev_ms)):.1f} ms between card events; {tokens / step_ms * 1e3:.0f} "
-        f"tok/s; MFU {flops / (step_ms / 1e3) / PEAK_BF16_FLOPS:.4f} (6 x {n_params - n_embed} "
-        f"non-embedding params x {tokens} tokens per step / step time / 989 TFLOP/s bf16 "
-        f"dense; remat's recompute not counted as useful work); peak device memory "
-        f"{peak / 2**30:.2f} GiB; run wall {wall:.1f} s of which steps "
-        f"{sum(r['step_s'] for r in out['history']):.1f} s")
+    log_steps("train", out, events, warmup, batch, seq, n_steps, loss_before, loss_after,
+              n_params - n_embed, "non-embedding params", peak, wall)
     log(f"[train] launches over the run: {counts}")
     # the checkpoint the trainer wrote at the last step restores bit-equal
     t0 = time.perf_counter()
@@ -1161,6 +1320,97 @@ def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
         f"kernel {fwd:.2f} ms ({per_fwd} launches); the rwkv6 backward (autograd through the "
         f"plain version, span rwkv6_backward) {bwd_us / 1e3:.1f} ms over {bwd_n} entries "
         f"({bwd_us / 1e3 / bwd_n:.2f} ms each); cuBLAS GEMMs {gemm:.1f} ms")
+
+
+def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
+                       warmup: int = 3) -> None:
+    """zamba2-7b at every published width, cut in depth to ``n_layers``:
+    42 layers are seven whole periods of the shared block (it fires after
+    layers 0, 6, ..., 36), about half of the 81, what one of two pipeline
+    stages would hold.  The whole model's params, grads and fp32 moments
+    (~6.64 B parameters at 12 bytes, 79.6 GB) do not fit one 80 GB card.
+    bf16 with per-block remat (the RunConfig defaults), random weights from
+    seed 0, trained ``n_steps`` through the launcher's step function and
+    Trainer on 8 x 512 TokenPipeline tokens, AdamW warmup 10, weight decay
+    0.01, lr ``TRAIN_LR``; no checkpoint (the ``train`` phase holds the
+    store).  The loss must be finite and fall on a held-out batch."""
+    import shutil
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.convert import leaves
+    from repro_torch.data.synthetic import DataConfig, TokenPipeline
+    from repro_torch.launch.train import make_step_fn, token_batches
+    from repro_torch.models.api import build_model
+    from repro_torch.models.blocks import n_attn_applications
+    from repro_torch.optim import adamw
+    cfg, rcfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=n_layers), RunConfig()
+    batch, seq = 8, 512
+    model = build_model(cfg, rcfg, device="cuda")
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=n_steps,
+                                weight_decay=0.01)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch, seed=rcfg.seed))
+    held_out = next(token_batches(pipe, 100_000, model.device))     # a step the run never takes
+
+    def eval_loss(p):
+        with torch.no_grad():
+            return model.loss(p, held_out)[0].item()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    numel = lambda tree: sum(t.numel() for t in leaves(tree))
+    n_params, layer, shared = numel(params), numel(params["blocks"][0]), numel(params["shared"])
+    n_fire = n_attn_applications(cfg)
+    applied = n_layers * layer + n_fire * shared
+    log(f"[train-hybrid] zamba2-7b cut to {n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}: {n_params} params ({n_params * 12 / 1e9:.1f} GB of bf16 params and "
+        f"grads and fp32 moments; a Mamba2 layer {layer}, the shared block {shared}, fired "
+        f"{n_fire} times: {applied} applied non-embedding params), bf16, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    loss_before = eval_loss(params)
+    ckpt_dir = ROOT / "build" / "chip_smoke_train_hybrid"      # stays empty: no step saves
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out, counts, peak, wall, events = run_trainer(model, opt_cfg, pipe, params, n_steps,
+                                                  ckpt_dir, ckpt_every=n_steps + 1)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = out["losses"]
+    check_train_path(counts, HYBRID_TRAIN_PATH, "zamba2 training")
+    per_fwd = 2 if rcfg.remat else 1
+    if (counts["mamba2_ssd"] != n_layers * per_fwd * n_steps
+            or counts["flash_attention"] != n_fire * per_fwd * n_steps or counts["rwkv6_scan"]):
+        raise AssertionError(f"launches {counts}: a step must run the SSD kernel "
+                             f"{n_layers * per_fwd} times and flash {n_fire * per_fwd} times "
+                             f"({n_layers} layers, {n_fire} shared-block firings, remat "
+                             f"{rcfg.remat}), and no rwkv6 kernel")
+    loss_after = eval_loss(out["params"])
+    if not all(np.isfinite(losses)) or not loss_after < loss_before:
+        raise AssertionError(f"training losses {losses}, held-out loss {loss_before} -> "
+                             f"{loss_after}: not finite or not falling")
+    log_steps("train-hybrid", out, events, warmup, batch, seq, n_steps, loss_before, loss_after,
+              applied, "applied non-embedding params (42 Mamba2 layers + 7 shared-block "
+              "firings)", peak, wall)
+    log(f"[train-hybrid] launches over the run: {counts}")
+    add_launches(results, counts, "train_hybrid")
+    # where a step's time goes
+    step = make_step_fn(model, opt_cfg)
+    p, o = out["params"], out["opt"]
+    b0 = next(token_batches(pipe, n_steps, model.device))
+
+    def one_step():
+        step(p, o, b0)
+    rows, spans = profile_step(one_step, f"zamba2-7b {n_layers}-layer training step, 8 x 512 "
+                               f"tokens", top=12, reps=1, spans=("mamba2_ssd_backward",))
+    busy = sum(r[0] for r in rows) / 1e3
+    fwd = sum(r[0] for r in rows if "ssd_kernel" in r[2]) / 1e3
+    flash = sum(r[0] for r in rows if "flash_attention" in r[2]) / 1e3
+    gemm = sum(r[0] for r in rows if "gemm" in r[2].lower() or "nvjet" in r[2]) / 1e3
+    bwd_us, bwd_n = spans["mamba2_ssd_backward"]
+    if bwd_n != n_layers:
+        raise AssertionError(f"a step ran the SSD backward {bwd_n} times, not {n_layers}")
+    log(f"[train-hybrid] within a profiled step of {busy:.1f} ms device time: the SSD forward "
+        f"kernel {fwd:.2f} ms ({n_layers * per_fwd} launches); the SSD backward (autograd "
+        f"through the plain version, span mamba2_ssd_backward) {bwd_us / 1e3:.1f} ms over "
+        f"{bwd_n} entries ({bwd_us / 1e3 / bwd_n:.2f} ms each); the flash forward kernel "
+        f"{flash:.2f} ms ({n_fire * per_fwd} launches); cuBLAS GEMMs {gemm:.1f} ms")
 
 
 def _train_losses(cfg, rcfg, lr: float, n_steps: int, batch: int, seq: int, device: str,
@@ -1281,6 +1531,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if "train" in phases:
         phase_train(results)
+        torch.cuda.empty_cache()
+    if "train_hybrid" in phases:
+        phase_train_hybrid(results)
     if "lr_probe" in phases:
         phase_lr_probe()
     kernels = [dict(r, launches=r.get("launches")) for r in results.values()]

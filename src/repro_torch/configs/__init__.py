@@ -22,9 +22,9 @@ from repro_torch.configs.base import (  # noqa: F401
     shape_applicable,
 )
 
-from repro_torch.configs import granite_8b, rwkv6_1p6b  # noqa: E402
+from repro_torch.configs import granite_8b, rwkv6_1p6b, zamba2_7b  # noqa: E402
 
-_MODULES = (granite_8b, rwkv6_1p6b)
+_MODULES = (granite_8b, rwkv6_1p6b, zamba2_7b)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.arch_id: m.CONFIG for m in _MODULES}
 

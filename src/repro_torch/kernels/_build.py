@@ -25,7 +25,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "paged_attention", "rwkv6_scan")
+SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "paged_attention", "rwkv6_scan",
+           "mamba2_ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

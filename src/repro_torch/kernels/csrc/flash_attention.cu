@@ -17,6 +17,10 @@
 // so the caller pads nothing.  Query tiles are issued longest-first so
 // causal work balances across SMs.
 //
+// Head dims 32, 64, 112 (zamba2-7b's shared block: 3584 / 32 heads) and 128.
+// Every loop over D steps in 16-byte groups of 8 bf16 or in 8-wide column
+// sets, and the mma k-steps are 16 wide: D only has to be a multiple of 16.
+//
 // Two bodies, chosen by the input dtype:
 // * bf16 (the serving path): tensor cores through mma.sync m16n8k16 with
 //   fp32 accumulate, the FlashAttention-2 register layout -- each of the 4
@@ -384,6 +388,7 @@ static cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);
     case 64: return launch<T, 64>(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);
+    case 112: return launch<T, 112>(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);
     case 128: return launch<T, 128>(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);
     default: return cudaErrorInvalidValue;
   }
@@ -405,6 +410,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     switch (D) {
       case 32: flash_attention_tc_kernel<32><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
       case 64: flash_attention_tc_kernel<64><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
+      case 112: flash_attention_tc_kernel<112><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
       case 128: flash_attention_tc_kernel<128><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
       default: return (int)cudaErrorInvalidValue;
     }

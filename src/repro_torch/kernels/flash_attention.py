@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 launches = 0
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)   # 112: zamba2-7b's shared block
 
 _DT = {torch.float32: _build.DT_F32, torch.bfloat16: _build.DT_BF16}
 _ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_int,

@@ -4,14 +4,16 @@ Routing: a tensor on the CPU goes to the kernel's plain PyTorch version; a
 tensor on a CUDA device launches the hand-written kernel, which raises on
 what it does not take.  There is no fallback between the two.
 
-Gradients: on CUDA tensors that need one, ``flash_attention``, ``rmsnorm``
-and ``rwkv6_scan`` go through ``torch.autograd.Function``s whose forward is
-the kernel and whose backward is autograd through the plain version,
+Gradients: on CUDA tensors that need one, ``flash_attention``, ``rmsnorm``,
+``rwkv6_scan`` and ``mamba2_ssd`` go through ``torch.autograd.Function``s
+whose forward is the kernel and whose backward is autograd through the
+plain version,
 recomputed from the saved inputs (the reference's oracle-AD backward,
 ``repro/kernels/ops.py``); without grad mode, or when no input requires
 grad, they call the kernel directly, so serving pays no autograd cost.
-The WKV6 backward runs inside a ``torch.profiler.record_function`` span,
-``rwkv6_backward``, so a profile reads its device time within a step.
+The WKV6 and SSD backwards run inside ``torch.profiler.record_function``
+spans, ``rwkv6_backward`` and ``mamba2_ssd_backward``, so a profile reads
+their device time within a step.
 The decode and paged kernels serve only: they raise if an input requires
 grad while grad mode is on, so no gradient is dropped silently.  On CPU
 tensors the plain versions are differentiable as they are.
@@ -23,18 +25,20 @@ show that it went through the kernels.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_ssd as _ssd
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import rwkv6_scan as _rwkv
 
 _COUNTED = {"flash_attention": _fa, "decode_attention": _dec,
-            "paged_decode_attention": _paged, "rmsnorm": _rms, "rwkv6_scan": _rwkv}
+            "paged_decode_attention": _paged, "rmsnorm": _rms, "rwkv6_scan": _rwkv,
+            "mamba2_ssd": _ssd}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -97,6 +101,23 @@ class _RWKV6(torch.autograd.Function):
                               ctx.needs_input_grad, g)
 
 
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D):
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        y, state = _ssd.mamba2_ssd_cuda(x, dt, A, B, C, D)
+        # the reference drops the final state's cotangent (its _ssd_b): the
+        # state is consumed only by decode, which has no training path
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, _gstate):
+        with torch.profiler.record_function("mamba2_ssd_backward"):
+            return _plain_vjp(lambda *a: _ssd.mamba2_ssd_chunked_plain(*a)[0],
+                              ctx.saved_tensors, ctx.needs_input_grad, gy)
+
+
 def _serving_only(name: str, *tensors: torch.Tensor) -> None:
     if _needs_grad(*tensors):
         raise RuntimeError(f"{name} serves only and has no backward: call it under "
@@ -154,6 +175,18 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     if not _needs_grad(r, k, v, log_w, u):
         return _rwkv.rwkv6_cuda(r, k, v, log_w, u)
     return _RWKV6.apply(r, k, v, log_w, u)
+
+
+def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,T,H,P); dt (B,T,H) fp32; A (H,) <= 0; B/C (B,T,N) shared by the
+    heads; D (H,).  Returns (y (B,T,H,P), final state (B,H,P,N) fp32); on
+    the card the state carries no gradient, as in the reference."""
+    if _on_cpu(x):
+        return _ssd.mamba2_ssd_chunked_plain(x, dt, A, B, C, D)
+    if not _needs_grad(x, dt, A, B, C, D):
+        return _ssd.mamba2_ssd_cuda(x, dt, A, B, C, D)
+    return _SSD.apply(x, dt, A, B, C, D)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -4,7 +4,7 @@
     params = model.init(seed)
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, cache, tokens)
-    loss, aux = model.loss(params, batch)          # training, dense and rwkv
+    loss, aux = model.loss(params, batch)          # training: dense, rwkv, hybrid
 
 ``model.decode_state`` (a :class:`DecodeState`) tells the serving backends
 what the decode state supports; ``batched_prefill`` is set only where
@@ -22,13 +22,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import lm as LM
-from repro_torch.models.blocks import require_kv_serving, require_ported
+from repro_torch.models.blocks import is_recurrent, require_kv_serving, require_ported
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeState:
     """``kind`` is the state taxonomy ("attention" for the dense family,
-    "recurrent" for rwkv, which the port trains but does not serve yet);
+    "recurrent" for rwkv and zamba2, which the port trains but does not
+    serve yet);
     ``batched_prefill(params, batch, lengths, max_len)`` is the
     right-padded bucketed prefill, or None where padding would leak.
 
@@ -68,8 +69,9 @@ class Model:
 def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     """The model's entry points on ``device`` (default ``cuda``).
 
-    Dense decoder LMs train and serve; rwkv6 trains, and its serving entry
-    points raise NotImplementedError naming the recurrent-serving item;
+    Dense decoder LMs train and serve; rwkv6 and zamba2 train, and their
+    serving entry points raise NotImplementedError naming the
+    recurrent-serving item;
     other families raise naming their ROADMAP item.  Params and compute
     share one dtype here."""
     require_ported(cfg)
@@ -86,7 +88,7 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     def loss(p, b):
         return LM.lm_loss(cfg, p, b, rcfg)
 
-    if cfg.rwkv:
+    if is_recurrent(cfg):
         def no_serving(*_a):
             require_kv_serving(cfg)
 

@@ -1,9 +1,11 @@
-"""Decoder-only LM assembly, dense and rwkv families (port of ``repro/models/lm.py``).
+"""Decoder-only LM assembly, dense, rwkv and hybrid families (port of
+``repro/models/lm.py``).
 
 Params::
 
     {"embed": {"tok": (Vp, D)},
      "blocks": [one dict per layer],          # the reference stacks (L, ...)
+     "shared": <zamba2 shared attn block>     # hybrid only
      "final_ln": {"scale": (D,)},
      "head": {"w": (D, Vp)}}                  # absent when tied
 
@@ -12,8 +14,8 @@ Cache (decode), dense lanes or a block pool::
     {"layers": {"k": (L, B, span, KVH, Dh), "v": ...}, "pos": (B,) int32}
     {"layers": {"k": (L, NB + 1, bs, KVH, Dh), "v": ...}, "pos": (B,) int32}
 
-Training (:func:`lm_loss`) runs for both families; serving (prefill, decode,
-caches) for the dense family only.
+Training (:func:`lm_loss`) runs for all three families; serving (prefill,
+decode, caches) for the dense family only.
 
 Decode writes each step's K/V into ``cache["layers"]`` IN PLACE (the
 reference donates the buffers to jit instead) and returns a cache dict with
@@ -43,6 +45,9 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, param_dtype: torch.dtype) ->
     p = {"embed": init_embed(gen, cfg.vocab_size, cfg.d_model, param_dtype),
          "blocks": [B.init_block(gen, cfg, param_dtype) for _ in range(cfg.n_layers)],
          "final_ln": init_rmsnorm(cfg.d_model, param_dtype, gen.device)}
+    shared = B.init_shared(gen, cfg, param_dtype)
+    if shared is not None:
+        p["shared"] = shared
     if not cfg.tie_embeddings:
         p["head"] = init_head(gen, cfg.d_model, cfg.vocab_size, param_dtype)
     return p
@@ -52,23 +57,35 @@ def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor
     """Logits (..., Vp) of final hidden states ``h``: the reference's
     ``h @ head_weight``.  Tied embeddings are rescaled by d_model**-0.5 to
     keep logits O(1); the scale goes on ``h``, not on a (D, Vp) copy of the
-    table (bit-exact where d_model is a power of 4, as for granite-8b)."""
+    table (bit-exact where d_model is a power of 4, as for granite-8b; one
+    rounding apart elsewhere, as for zamba2-7b's 3584)."""
     if cfg.tie_embeddings:
         return (h * cfg.d_model ** -0.5) @ params["embed"]["tok"].t().to(h.dtype)
     return h @ params["head"]["w"].to(h.dtype)
 
 
+def _layer_train(cfg: ModelConfig, bp: dict, shared, x: torch.Tensor,
+                 idx: int) -> torch.Tensor:
+    """Layer ``idx``, then zamba2's shared block where it fires after it."""
+    x = B.block_train(cfg, bp, x)
+    if shared is not None:
+        x = B.shared_attn_train(cfg, shared, x, idx)
+    return x
+
+
 def _scan_train(cfg: ModelConfig, params: dict, x: torch.Tensor,
                 rcfg: RunConfig) -> torch.Tensor:
-    """Every block over the full sequence; with ``rcfg.remat`` (and grad on)
-    each block is checkpointed, its activations recomputed in the backward
-    (the reference's ``jax.checkpoint`` of the scan body)."""
+    """Every layer over the full sequence; with ``rcfg.remat`` (and grad on)
+    each layer -- with the shared block that fires after it -- is
+    checkpointed, its activations recomputed in the backward (the
+    reference's ``jax.checkpoint`` of the scan body)."""
     remat = rcfg.remat and torch.is_grad_enabled()
-    for bp in params["blocks"]:
+    shared = params.get("shared")
+    for idx, bp in enumerate(params["blocks"]):
         if remat:
-            x = checkpoint(B.block_train, cfg, bp, x, use_reentrant=False)
+            x = checkpoint(_layer_train, cfg, bp, shared, x, idx, use_reentrant=False)
         else:
-            x = B.block_train(cfg, bp, x)
+            x = _layer_train(cfg, bp, shared, x, idx)
     return x
 
 

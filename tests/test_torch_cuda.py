@@ -9,11 +9,13 @@ import torch
 
 from repro_torch.kernels import decode_attention as kdec
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import mamba2_ssd as kssd
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import rmsnorm as krms
 from repro_torch.kernels import rwkv6_scan as krwkv
 from repro_torch.models.rwkv import rwkv6_scan_plain
+from repro_torch.models.ssm import mamba2_scan_plain
 
 # |kernel - plain| <= tol * max(1, |plain|): fp32 differs only in summation
 # order; bf16 results are rounded to 8 mantissa bits on both sides
@@ -59,6 +61,7 @@ def test_rmsnorm_kernel(cuda_device, dtype, rows, d):
     (2, 130, 8, 2, 64, True, 48),       # chunk not a tile multiple, ragged
     (1, 128, 2, 1, 32, False, 0),       # non-causal
     (1, 96, 6, 3, 128, True, 0),        # head_dim 128
+    (2, 300, 8, 8, 112, True, 0),       # head_dim 112 (zamba2's shared block), ragged
     (3, 1, 32, 8, 128, True, 0),        # one token
 ])
 def test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk):
@@ -169,9 +172,12 @@ def test_ops_launch_kernels_and_count(cuda_device):
                                torch.tensor([[2, 1]], dtype=torch.int32, device=cuda_device),
                                torch.tensor([6], dtype=torch.int32, device=cuda_device), 0.2)
     ops.rwkv6_scan(q, q, q, torch.full_like(q, 0.9), torch.zeros(4, 32, device=cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ops.mamba2_ssd(*_ssd_inputs(gen, torch.float32, 1, 16, 2, 32, 16, "reference"))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1, "decode_attention": 1,
-                                   "paged_decode_attention": 1, "rmsnorm": 1, "rwkv6_scan": 1}
+                                   "paged_decode_attention": 1, "rmsnorm": 1, "rwkv6_scan": 1,
+                                   "mamba2_ssd": 1}
     with pytest.raises(ValueError, match="contiguous"):
         kfa.flash_attention_cuda(q.transpose(1, 2), k, k)
 
@@ -272,6 +278,7 @@ def test_gradients_through_the_kernels_match_plain(cuda_device, dtype):
     x, s = _rand(gen, dtype, 24, 256), 1 + 0.1 * _rand(gen, dtype, 256)
     r, kk, vv, lw, u = _rwkv_inputs(gen, dtype, 2, 40, 2, 32, -1.0)
     w = torch.exp(lw)
+    ssd = _ssd_inputs(gen, dtype, 2, 70, 3, 32, 16, "reference")
     cases = [
         (lambda *a: ops.flash_attention(*a), lambda *a: kfa.flash_attention_plain(*a),
          [q, k, v]),
@@ -279,6 +286,8 @@ def test_gradients_through_the_kernels_match_plain(cuda_device, dtype):
         (lambda *a: ops.rwkv6_scan(*a),
          lambda r, k, v, w, u: krwkv.rwkv6_chunked_plain(
              r, k, v, torch.log(torch.clamp(w.float(), min=1e-38)), u), [r, kk, vv, w, u]),
+        (lambda *a: ops.mamba2_ssd(*a)[0], lambda *a: kssd.mamba2_ssd_chunked_plain(*a)[0],
+         list(ssd)),
     ]
     ops.reset_launch_counts()
     for fn, plain, xs in cases:
@@ -287,6 +296,7 @@ def test_gradients_through_the_kernels_match_plain(cuda_device, dtype):
             _assert_close(a, b, a.dtype)
     counts = ops.launch_counts()
     assert counts["flash_attention"] == counts["rmsnorm"] == counts["rwkv6_scan"] == 1
+    assert counts["mamba2_ssd"] == 1
 
 
 @pytest.mark.cuda
@@ -316,8 +326,10 @@ def test_ops_skip_autograd_when_no_gradient_is_needed(cuda_device):
     q = _rand(gen, torch.float32, 1, 16, 2, 32)
     r, k, v, lw, u = _rwkv_inputs(gen, torch.float32, 1, 16, 2, 32, -0.5)
     calls = [lambda x, s: ops.rmsnorm(x, s), lambda q: ops.flash_attention(q, q, q),
-             lambda r, k, v, w, u: ops.rwkv6_scan(r, k, v, w, u)]
-    inputs = [[x, s], [q], [r, k, v, torch.exp(lw), u]]
+             lambda r, k, v, w, u: ops.rwkv6_scan(r, k, v, w, u),
+             lambda *a: ops.mamba2_ssd(*a)[0]]
+    inputs = [[x, s], [q], [r, k, v, torch.exp(lw), u],
+              list(_ssd_inputs(gen, torch.float32, 1, 16, 2, 32, 16, "reference"))]
     ops.reset_launch_counts()
     for fn, xs in zip(calls, inputs):
         assert fn(*xs).grad_fn is None
@@ -325,4 +337,75 @@ def test_ops_skip_autograd_when_no_gradient_is_needed(cuda_device):
             assert fn(*(a.detach().requires_grad_(True) for a in xs)).grad_fn is None
         assert fn(*(a.detach().requires_grad_(True) for a in xs)).grad_fn is not None
     assert ops.launch_counts() == {"flash_attention": 3, "decode_attention": 0,
-                                   "paged_decode_attention": 0, "rmsnorm": 3, "rwkv6_scan": 3}
+                                   "paged_decode_attention": 0, "rmsnorm": 3, "rwkv6_scan": 3,
+                                   "mamba2_ssd": 3}
+
+
+def _ssd_inputs(gen, dtype, b, t, h, p, n, decay):
+    """x, dt, A, B, C, D for the SSD scan; x, B and C in ``dtype`` and cut
+    from one (B, T, H*P + 2N) tensor as the model cuts them (strided views).
+    ``decay``: "reference" (dt = softplus(N(0,1)), A = -exp(0.3 N), as
+    tests/test_kernels.py) or "strong" (dt uniform in [0, 5], A = -16)."""
+    dev = gen.device
+    xbc = _rand(gen, dtype, b, t, h * p + 2 * n)
+    x = xbc[..., :h * p].reshape(b, t, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    if decay == "strong":
+        dt = 5.0 * torch.rand((b, t, h), generator=gen, device=dev)
+        a = torch.full((h,), -16.0, device=dev)
+    else:
+        dt = torch.nn.functional.softplus(_rand(gen, torch.float32, b, t, h))
+        a = -torch.exp(0.3 * _rand(gen, torch.float32, h))
+    return x, dt, a, bm, cm, 1.0 + 0.1 * _rand(gen, torch.float32, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,p,n,decay", [
+    (2, 128, 4, 32, 16, "reference"),   # zamba2 reduced widths
+    (1, 100, 3, 64, 64, "reference"),   # zamba2 full widths, T not a multiple of the chunk
+    (2, 37, 2, 64, 64, "reference"),    # shorter than one chunk
+    (1, 1, 2, 32, 16, "reference"),     # one token
+    (2, 500, 4, 64, 64, "strong"),      # strong decay, ragged: a chunk's log-decay ~ -5000
+    (8, 512, 112, 64, 64, "reference"),  # zamba2-7b's training shape
+])
+def test_ssd_kernel(cuda_device, dtype, b, t, h, p, n, decay):
+    """Kernel against the plain chunked version (y and the final state):
+    fp32 within 3e-5 of max|ref| (the reference kernel's tolerance), also
+    against the token recurrence; bf16 y within 2e-2 x max(1, |ref|)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t * h + p + n)
+    args = _ssd_inputs(gen, dtype, b, t, h, p, n, decay)
+    y, s = kssd.mamba2_ssd_cuda(*args)
+    ry, rs = kssd.mamba2_ssd_chunked_plain(*args)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    assert (s - rs).abs().max() <= 3e-5 * rs.abs().max()
+    if dtype == torch.bfloat16:
+        _assert_close(y, ry, dtype)
+        return
+    assert (y - ry).abs().max() <= 3e-5 * ry.abs().max()
+    if t * h <= 2000:
+        qy, qs = mamba2_scan_plain(*args)
+        assert (y - qy).abs().max() <= 3e-5 * qy.abs().max()
+        assert (s - qs).abs().max() <= 3e-5 * qs.abs().max()
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, dt, a, bm, cm, d = _ssd_inputs(gen, torch.float32, 1, 16, 2, 32, 16, "reference")
+    with pytest.raises(TypeError, match="share"):
+        kssd.mamba2_ssd_cuda(x, dt, a, bm.bfloat16(), cm, d)
+    with pytest.raises(TypeError, match="float32"):
+        kssd.mamba2_ssd_cuda(x, dt.bfloat16(), a, bm, cm, d)
+    with pytest.raises(ValueError, match=r"\(P, N\)"):
+        kssd.mamba2_ssd_cuda(x[..., :16], dt, a, bm, cm, d)
+    with pytest.raises(ValueError, match=r"\(P, N\)"):
+        kssd.mamba2_ssd_cuda(x, dt, a, bm[..., :8], cm[..., :8], d)
+    with pytest.raises(ValueError, match=r"\(P, N\)"):
+        kssd.mamba2_ssd_cuda(*_ssd_inputs(gen, torch.float32, 1, 16, 2, 64, 16, "reference"))
+    with pytest.raises(ValueError, match="packed"):
+        kssd.mamba2_ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, bm, cm, d)
+    with pytest.raises(ValueError, match="shapes"):
+        kssd.mamba2_ssd_cuda(x, dt, a[:1], bm, cm, d)
+    with pytest.raises(ValueError, match="CUDA"):
+        kssd.mamba2_ssd_cuda(x, dt.cpu(), a, bm, cm, d)

@@ -21,6 +21,7 @@ from repro.models.attention import _repeat_kv, sdpa
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import decode_attention as kdec
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import mamba2_ssd as kssd
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import rmsnorm as krms
@@ -216,8 +217,14 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     u = torch.zeros(4, 32)
     assert torch.equal(ops.rwkv6_scan(q, q, q, w, u),
                        krwkv.rwkv6_chunked_plain(q, q, q, torch.log(w), u))
+    dt, a = torch.full((1, 40, 4), 0.5), -torch.ones(4)
+    bc = k[:, :, 0]
+    y, st = ops.mamba2_ssd(q, dt, a, bc, bc, torch.ones(4))
+    ry, rst = kssd.mamba2_ssd_chunked_plain(q, dt, a, bc, bc, torch.ones(4))
+    assert torch.equal(y, ry) and torch.equal(st, rst)
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "paged_decode_attention": 0, "rmsnorm": 0, "rwkv6_scan": 0}
+                                   "paged_decode_attention": 0, "rmsnorm": 0, "rwkv6_scan": 0,
+                                   "mamba2_ssd": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -238,3 +245,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                            torch.zeros(1, dtype=torch.int32), 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         krwkv.rwkv6_cuda(q, q, q, q, torch.zeros(4, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        kssd.mamba2_ssd_cuda(q, torch.zeros(1, 8, 4), -torch.ones(4), q[:, :, 0], q[:, :, 0],
+                             torch.ones(4))

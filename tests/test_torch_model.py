@@ -59,12 +59,12 @@ def _tokens(seed, shape):
 def test_configs_are_copies():
     cfg, tcfg = _cfgs(4)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(tcfg)
-    for arch in ("granite-8b", "rwkv6-1.6b"):
+    for arch in ("granite-8b", "rwkv6-1.6b", "zamba2-7b"):
         full = dataclasses.asdict(get_config(arch))
         assert full == dataclasses.asdict(tconfigs.get_config(arch))
         assert dataclasses.asdict(reduced_config(get_config(arch))) == dataclasses.asdict(
             tconfigs.reduced_config(tconfigs.get_config(arch)))
-    assert tconfigs.ARCH_IDS == ["granite-8b", "rwkv6-1.6b"]
+    assert tconfigs.ARCH_IDS == ["granite-8b", "rwkv6-1.6b", "zamba2-7b"]
 
 
 def test_prefill_and_decode_logits_match_jax(pair):

@@ -39,7 +39,7 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 ADAMW_TOL = 1e-6
 TRAJ_TOL = 1e-4
-ARCHS = ("rwkv6-1.6b", "granite-8b")
+ARCHS = ("rwkv6-1.6b", "granite-8b", "zamba2-7b")
 
 
 def _pair(arch, n_layers, uk, remat=False):
@@ -160,13 +160,16 @@ class _Clock:
         return self.t
 
 
-def test_trainer_trajectory_matches_jax_launcher_step(tmp_path):
+# zamba2 at the launcher's own batch (8 x 128): at 4 x 32 its loss (the
+# reference's and the port's alike) does not fall within 5 warm-up steps
+@pytest.mark.parametrize("arch,batch,seq", [("rwkv6-1.6b", 4, 32), ("zamba2-7b", 8, 128)])
+def test_trainer_trajectory_matches_jax_launcher_step(tmp_path, arch, batch, seq):
     """5 steps of the port's launcher step through its Trainer against the
     JAX launcher's step (value_and_grad + adamw.update, jitted) through the
     JAX Trainer, on the same TokenPipeline batches and weights."""
-    model, tmodel = _pair("rwkv6-1.6b", 2, False)
+    model, tmodel = _pair(arch, 2, False)
     opt_cfg = jadamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=5, weight_decay=0.01)
-    pipe = JTokenPipeline(JDataConfig(vocab_size=512, seq_len=32, global_batch=4))
+    pipe = JTokenPipeline(JDataConfig(vocab_size=512, seq_len=seq, global_batch=batch))
     params = model.init(jax.random.key(0))
 
     @jax.jit
@@ -185,7 +188,7 @@ def test_trainer_trajectory_matches_jax_launcher_step(tmp_path):
                     jstep, lambda: (params, jadamw.init(params)), jdata).run()
 
     tparams = params_from_jax(_np_tree(params), device="cpu")
-    tpipe = TokenPipeline(DataConfig(vocab_size=512, seq_len=32, global_batch=4))
+    tpipe = TokenPipeline(DataConfig(vocab_size=512, seq_len=seq, global_batch=batch))
     tr = Trainer(TrainerConfig(total_steps=5, ckpt_every=100, ckpt_dir=str(tmp_path / "t")),
                  tlaunch.make_step_fn(tmodel, adamw.AdamWConfig(**dataclasses.asdict(opt_cfg))),
                  lambda: (tparams, adamw.init(tparams)),
@@ -195,6 +198,43 @@ def test_trainer_trajectory_matches_jax_launcher_step(tmp_path):
     assert np.abs(np.array(tout["losses"]) - np.array(jout["losses"])).max() < TRAJ_TOL
     assert tout["losses"][-1] < tout["losses"][0]
     assert [r["step_s"] for r in tout["history"]] == [0.25] * 5
+
+
+def test_zamba2_serving_entry_points_name_recurrent_serving():
+    """zamba2 trains; its prefill, decode and cache raise naming ROADMAP
+    §1 item 13, and its decode state is recurrent, as rwkv6's."""
+    _, tmodel = _pair("zamba2-7b", 2, False)
+    assert tmodel.decode_state.kind == "recurrent" and not tmodel.decode_state.poolable
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    for call in (lambda: tmodel.prefill(tmodel.init(0), {"tokens": toks}, 8),
+                 lambda: tmodel.decode_step({}, {}, toks[:, :1]), lambda: tmodel.init_cache(1, 8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 13"):
+            call()
+
+
+def test_params_from_jax_carries_the_shared_block():
+    """The reduced zamba2 tree: ``shared`` crosses whole (one set of
+    weights, not stacked) beside the per-layer ``blocks``, bit-equal, in
+    the port's own init structure; A_log, D and dt_bias stay fp32 in a bf16
+    tree."""
+    cfg = reduced_config(get_config("zamba2-7b"))
+    model = build_model(cfg, RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16"))
+    params = _np_tree(model.init(jax.random.key(1)))
+    tparams = params_from_jax(params, device="cpu")
+    own = tbuild_model(tconfigs.reduced_config(tconfigs.get_config("zamba2-7b")),
+                       tconfigs.RunConfig(), device="cpu").init(0)
+    assert sorted(tparams) == sorted(own) == ["blocks", "embed", "final_ln", "shared"]
+    assert len(tparams["blocks"]) == cfg.n_layers
+    shape = lambda tree: tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
+    assert shape(tparams) == shape(own)
+    assert tparams["blocks"][0]["mamba"]["A_log"].dtype == torch.float32
+    assert tparams["shared"]["attn"]["wq"].dtype == torch.bfloat16
+    jflat = [np.asarray(a).view(np.uint16) if a.dtype.name == "bfloat16" else np.asarray(a)
+             for a in jax.tree.leaves(params["shared"])]
+    for a, ref in zip(leaves(tparams["shared"]), jflat):
+        got = a.view(torch.int16).numpy().view(np.uint16) if a.dtype == torch.bfloat16 \
+            else a.numpy()
+        assert np.array_equal(got, ref)
 
 
 def test_trainer_restarts_and_resumes_from_its_checkpoint(tmp_path):
