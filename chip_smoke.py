@@ -8,13 +8,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
 1. require a CUDA device; print ``nvidia-smi``'s card name and power limit;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card at
-   granite-8b shapes, the rwkv6 kernel at rwkv6-1.6b's training shape and
-   the SSD kernel, flash (head_dim 112) and RMSNorm at zamba2-7b's (the
-   decode kernel also on a lane with no valid position, the paged kernel
-   over 16 lanes' block tables with shared blocks, the rwkv6 and SSD
-   kernels also against their token recurrences under strong decay), and
-   time kernel, plain version and a library call (and the rwkv6 and SSD
-   backwards);
+   granite-8b shapes (flash also at a serving bucket, B 8 x T 128), the
+   rwkv6 kernel at rwkv6-1.6b's training shape and the SSD kernel, flash
+   (head_dim 112) and RMSNorm at zamba2-7b's (the decode kernel also on a
+   lane with no valid position, the paged kernel over 16 lanes' block
+   tables with shared blocks, the rwkv6 and SSD kernels also against their
+   token recurrences under strong decay), and time kernel, plain version
+   and a library call (and the rwkv6 and SSD backwards); flash and RMSNorm
+   also by their kernels' device time alone (torch.profiler), beside the
+   library call's;
 4. reduced granite in fp32 with the same weights on the card (kernels) and
    on the CPU (plain versions): logits and greedy ServeEngine tokens agree,
    over dense lanes and over the paged pool with the prefix cache (a run
@@ -45,7 +47,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
 10. ``train_hybrid``: zamba2-7b at full width cut to 42 layers (seven
    periods of its shared block; the whole model's params, grads and
    moments do not fit one card), bf16, trained 10 steps the same way, no
-   checkpoint; step time, tok/s, MFU, peak memory and a profile of a step.
+   checkpoint; step time, tok/s, MFU, peak memory and a profile of a step
+   (the SSD, flash and RMSNorm backwards read from their spans).
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
@@ -58,7 +61,10 @@ and 14) and RMSNorm and no decode kernel.
 The line before the last is a JSON object of per-kernel numbers, the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the checkout beside it, the script exits nonzero and prints no
-result.  ``--phases`` runs a subset (default: all).
+result.  ``--phases`` runs a subset (default: all); ``--phases
+build,baseline --baseline DIR[,DIR...]`` (never run by default) builds the
+flash and RMSNorm kernels of other checkouts, e.g. the parent commit
+unpacked with ``git archive``, and times them in turns with this one's.
 """
 
 from __future__ import annotations
@@ -101,7 +107,7 @@ BF16_MODEL_TOL = 0.25
 
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
           "train", "train_hybrid")
-OPT_IN = ("lr_probe",)
+OPT_IN = ("lr_probe", "baseline")
 
 # the kernels each serving path must launch; the other decode kernel must not
 DENSE_PATH = ("flash_attention", "decode_attention", "rmsnorm")
@@ -120,6 +126,11 @@ SCAN_F32_TOL = 3e-5
 TRAIN_LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 STEP_LOSS_TOL = 1e-4
+# calls timed per kernel reading: kernels of tens of microseconds need this
+# many to average out the host's jitter (20 calls left (4096, 2048) RMSNorm
+# at 0.0164 ms in one run and 0.0253 in the next)
+FAST_ITERS = 200
+RMS_SHAPES = ((8192, 4096), (8, 4096), (4096, 2048), (4096, 3584), (4096, 7168))
 # full-width training lr: the reference launcher's 3e-3 (set for its reduced
 # config) raised rwkv6-1.6b's loss over 20 steps; 6e-4 lowers it (PERF.md)
 TRAIN_LR = 6e-4
@@ -145,6 +156,22 @@ def sync_time_ms(fns, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fns, iters: int = FAST_ITERS, warmup: int = 3) -> float:
+    """Mean device time of the kernels one call launches: torch.profiler's
+    kernel records over ``iters`` calls, without the host's dispatch time,
+    which bounds ``sync_time_ms`` for kernels of a few microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
 
 
 def n_sets(bytes_per_set: int, cold_bytes: int = 120 << 20) -> int:
@@ -216,9 +243,17 @@ def phase_build() -> None:
     log(f"[build] {len(_build.SOURCES)} libraries in {time.perf_counter() - t0:.1f} s "
         f"under {_build.build_dir()}")
     for name, text in logs.items():
+        entry = spills = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "spill" in line:
+                spills = line.strip()
+            elif "warning" in line.lower() or "(C7" in line:     # ptxas's advisories
+                log(f"[build] {name}: {line.strip()[:240]}")
+            elif "registers" in line:      # the last line of an entry's report
+                log(f"[build] {name}: {entry[:72]}: {line.split(':', 1)[-1].strip()}; "
+                    f"{spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +280,8 @@ def phase_kernels(results: dict) -> None:
     # -- rmsnorm: granite-8b's (8192, 4096) prefill-sized and (8, 4096)
     # decode-sized rows, rwkv6-1.6b's training rows (8 x 512, 2048), and
     # zamba2-7b's: the block norms (8 x 512, 3584) and the gated norm (8 x 512, 7168)
-    for rows, d in ((8192, 4096), (8, 4096), (4096, 2048), (4096, 3584), (4096, 7168)):
+    shapes = []
+    for rows, d in RMS_SHAPES:
         sets = [(_rand((rows, d), bf, gen), (1 + 0.1 * _rand((d,), torch.float32, gen)).to(bf))
                 for _ in range(n_sets(rows * d * 2 * 2))]
         x, s = sets[0]
@@ -254,44 +290,34 @@ def phase_kernels(results: dict) -> None:
         x32, s32 = x.float(), s.float()
         check_close(f"rmsnorm {rows}x{d} f32", krms.rmsnorm_cuda(x32, s32),
                     krms.rmsnorm_plain(x32, s32), F32_TOL, relative=False)
-        ms = sync_time_ms([lambda a=a, b=b: krms.rmsnorm_cuda(a, b) for a, b in sets])
+        kern = [lambda a=a, b=b: krms.rmsnorm_cuda(a, b) for a, b in sets]
+        lib = [lambda a=a, b=b: F.rms_norm(a, (d,), b, 1e-5) for a, b in sets]
+        ms, lib_ms = sync_time_ms(kern, iters=FAST_ITERS), sync_time_ms(lib, iters=FAST_ITERS)
+        dev_ms, lib_dev_ms = device_ms(kern), device_ms(lib)
         plain_ms = sync_time_ms([lambda a=a, b=b: krms.rmsnorm_plain(a, b) for a, b in sets])
-        lib_ms = sync_time_ms([lambda a=a, b=b: F.rms_norm(a, (d,), b, 1e-5) for a, b in sets])
         b_ms, b_by = bound(4.0 * rows * d, PEAK_F32_FLOPS, rows * d * 2 * 2 + d * 2)
-        log(f"[kernels] rmsnorm ({rows},{d}) bf16: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  F.rms_norm {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-        if rows == 8192:
-            results["rmsnorm"] = dict(
-                name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-                replaces="src/repro/kernels/rmsnorm.py:25", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                shape=f"x ({rows},{d}) bf16")
+        log(f"[kernels] rmsnorm ({rows},{d}) bf16: max_abs_err {err:.3e}  kernel {ms:.4f} ms "
+            f"(device {dev_ms:.4f})  plain {plain_ms:.4f} ms  F.rms_norm {lib_ms:.4f} ms (device "
+            f"{lib_dev_ms:.4f})  bound {b_ms:.4f} ms ({b_by})")
+        shapes.append(dict(shape=f"x ({rows},{d}) bf16", max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                           device_ms=dev_ms, library_device_ms=lib_dev_ms))
+    results["rmsnorm"] = dict(
+        name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:25", **shapes[0], shapes=shapes[1:])
 
-    # -- flash attention: B=2, H=32, G=8, D=128, causal, T=1024 and ragged 1000
-    b, h, g, d = 2, 32, 8, 128
-    for t in (1024, 1000):
-        q, k, v = (_rand((b, t, n, d), bf, gen) for n in (h, g, g))
-        err = check_close(f"flash T={t} bf16", kfa.flash_attention_cuda(q, k, v),
-                          kfa.flash_attention_plain(q, k, v), BF16_TOL, relative=True)
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        check_close(f"flash T={t} f32", kfa.flash_attention_cuda(q32, k32, v32),
-                    kfa.flash_attention_plain(q32, k32, v32), F32_TOL, relative=False)
-        ms = sync_time_ms([lambda: kfa.flash_attention_cuda(q, k, v)], iters=10)
-        plain_ms = sync_time_ms([lambda: kfa.flash_attention_plain(q, k, v)], iters=5)
-        lib_ms = sync_time_ms([lambda: _sdpa_gqa(q, k, v, is_causal=True)], iters=10)
-        pairs = t * (t + 1) // 2                      # causal (query, key) pairs per head
-        b_ms, b_by = bound(4.0 * b * h * d * pairs, PEAK_BF16_FLOPS,
-                           2 * (b * t * h * d + 2 * b * t * g * d))
-        log(f"[kernels] flash B={b} T={t} H={h} G={g} D={d} causal bf16: max_abs_err "
-            f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})")
+    # -- flash attention: B=2, H=32, G=8, D=128, causal, T=1024 and ragged
+    # 1000, and a serving bucket the engine dispatches, B=8 T=128
+    h, g, d = 32, 8, 128
+    for b, t in ((2, 1024), (2, 1000), (8, 128)):
+        row = flash_case(f"B={b} T={t} H={h} G={g} D={d} causal bf16", b, t, h, g, d, gen)
         if t == 1024:
             results["flash_attention"] = dict(
                 name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:88", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                shape=f"B={b} T={t} H={h} G={g} D={d} causal bf16")
+                replaces="src/repro/kernels/flash_attention.py:88", **row)
+        elif t == 128:
+            results["flash_attention"]["serving_bucket"] = row
     flash_d112(results, gen)
 
     # -- decode attention: B=8 lanes, S=1024, random per-lane filled length
@@ -352,28 +378,40 @@ def phase_kernels(results: dict) -> None:
     ssd_kernel(results, gen)
 
 
-def flash_d112(results: dict, gen: torch.Generator) -> None:
-    """Flash at zamba2-7b's shared block: B 8, T 512, 32 heads over 32 KV
-    heads of 112, causal, bf16 and fp32 against the plain version."""
+def flash_case(shape: str, b: int, t: int, h: int, g: int, d: int,
+               gen: torch.Generator) -> dict:
+    """Flash, causal, bf16 and fp32 against the plain version, then kernel,
+    plain and SDPA times over input sets cycled out of L2; the bound counts
+    q, k and v read and the output written once."""
     from repro_torch.kernels import flash_attention as kfa
-    b, t, h, g, d = 8, 512, 32, 32, 112
-    q, k, v = (_rand((b, t, n, d), torch.bfloat16, gen) for n in (h, g, g))
-    err = check_close("flash D=112 bf16", kfa.flash_attention_cuda(q, k, v),
+    sets = [tuple(_rand((b, t, n, d), torch.bfloat16, gen) for n in (h, g, g))
+            for _ in range(n_sets(2 * (2 * b * t * h * d + 2 * b * t * g * d)))]
+    q, k, v = sets[0]
+    err = check_close(f"flash {shape}", kfa.flash_attention_cuda(q, k, v),
                       kfa.flash_attention_plain(q, k, v), BF16_TOL, relative=True)
     q32, k32, v32 = q.float(), k.float(), v.float()
-    check_close("flash D=112 f32", kfa.flash_attention_cuda(q32, k32, v32),
+    check_close(f"flash {shape} f32", kfa.flash_attention_cuda(q32, k32, v32),
                 kfa.flash_attention_plain(q32, k32, v32), F32_TOL, relative=False)
-    ms = sync_time_ms([lambda: kfa.flash_attention_cuda(q, k, v)], iters=10)
-    plain_ms = sync_time_ms([lambda: kfa.flash_attention_plain(q, k, v)], iters=5)
-    lib_ms = sync_time_ms([lambda: _sdpa_gqa(q, k, v, is_causal=True)], iters=10)
+    kern = [lambda a=a: kfa.flash_attention_cuda(*a) for a in sets]
+    lib = [lambda a=a: _sdpa_gqa(*a, is_causal=True) for a in sets]
+    ms, lib_ms = sync_time_ms(kern, iters=FAST_ITERS), sync_time_ms(lib, iters=FAST_ITERS)
+    dev_ms, lib_dev_ms = device_ms(kern), device_ms(lib)
+    plain_ms = sync_time_ms([lambda a=a: kfa.flash_attention_plain(*a) for a in sets], iters=5)
     b_ms, b_by = bound(4.0 * b * h * d * (t * (t + 1) // 2), PEAK_BF16_FLOPS,
-                       2 * (b * t * h * d + 2 * b * t * g * d))
-    log(f"[kernels] flash B={b} T={t} H={h} G={g} D={d} causal bf16 (zamba2's shared block): "
-        f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-        f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-    results["flash_attention"]["zamba2_shape"] = dict(
-        shape=f"B={b} T={t} H={h} G={g} D={d} causal bf16", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                       2 * (2 * b * t * h * d + 2 * b * t * g * d))
+    log(f"[kernels] flash {shape}: max_abs_err {err:.3e}  kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (device {lib_dev_ms:.4f})  "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms)
+
+
+def flash_d112(results: dict, gen: torch.Generator) -> None:
+    """Flash at zamba2-7b's shared block: B 8, T 512, 32 heads over 32 KV
+    heads of 112, causal."""
+    results["flash_attention"]["zamba2_shape"] = flash_case(
+        "B=8 T=512 H=32 G=32 D=112 causal bf16 (zamba2's shared block)", 8, 512, 32, 32, 112,
+        gen)
 
 
 def ssd_flops(b: int, t: int, h: int, p: int, n: int, c: int = 64) -> float:
@@ -1309,17 +1347,21 @@ def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
     def one_step():
         step(p, o, b0)
     rows, spans = profile_step(one_step, "rwkv6-1.6b training step, 8 x 512 tokens", top=12,
-                               reps=1, spans=("rwkv6_backward",))
+                               reps=1, spans=("rwkv6_backward", "rmsnorm_backward"))
     busy = sum(r[0] for r in rows) / 1e3
     fwd = sum(r[0] for r in rows if "rwkv6_kernel" in r[2]) / 1e3
     bwd_us, bwd_n = spans["rwkv6_backward"]
     gemm = sum(r[0] for r in rows if "gemm" in r[2].lower() or "nvjet" in r[2]) / 1e3
     if bwd_n != cfg.n_layers:
         raise AssertionError(f"a step ran the rwkv6 backward {bwd_n} times, not {cfg.n_layers}")
+    rms_us, rms_n = spans["rmsnorm_backward"]
+    rms_fwd = sum(r[0] for r in rows if "rmsnorm" in r[2]) / 1e3
     log(f"[train] within a profiled step of {busy:.1f} ms device time: the rwkv6 forward "
         f"kernel {fwd:.2f} ms ({per_fwd} launches); the rwkv6 backward (autograd through the "
         f"plain version, span rwkv6_backward) {bwd_us / 1e3:.1f} ms over {bwd_n} entries "
-        f"({bwd_us / 1e3 / bwd_n:.2f} ms each); cuBLAS GEMMs {gemm:.1f} ms")
+        f"({bwd_us / 1e3 / bwd_n:.2f} ms each); the RMSNorm forward kernel {rms_fwd:.2f} ms, "
+        f"its backward (span rmsnorm_backward) {rms_us / 1e3:.2f} ms over {rms_n} entries; "
+        f"cuBLAS GEMMs {gemm:.1f} ms")
 
 
 def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
@@ -1398,7 +1440,9 @@ def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
     def one_step():
         step(p, o, b0)
     rows, spans = profile_step(one_step, f"zamba2-7b {n_layers}-layer training step, 8 x 512 "
-                               f"tokens", top=12, reps=1, spans=("mamba2_ssd_backward",))
+                               f"tokens", top=12, reps=1,
+                               spans=("mamba2_ssd_backward", "flash_attention_backward",
+                                      "rmsnorm_backward"))
     busy = sum(r[0] for r in rows) / 1e3
     fwd = sum(r[0] for r in rows if "ssd_kernel" in r[2]) / 1e3
     flash = sum(r[0] for r in rows if "flash_attention" in r[2]) / 1e3
@@ -1406,11 +1450,20 @@ def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
     bwd_us, bwd_n = spans["mamba2_ssd_backward"]
     if bwd_n != n_layers:
         raise AssertionError(f"a step ran the SSD backward {bwd_n} times, not {n_layers}")
+    fa_us, fa_n = spans["flash_attention_backward"]
+    rms_us, rms_n = spans["rmsnorm_backward"]
+    rms_fwd = sum(r[0] for r in rows if "rmsnorm" in r[2]) / 1e3
+    if fa_n != n_fire:
+        raise AssertionError(f"a step ran the flash backward {fa_n} times, not {n_fire}")
     log(f"[train-hybrid] within a profiled step of {busy:.1f} ms device time: the SSD forward "
         f"kernel {fwd:.2f} ms ({n_layers * per_fwd} launches); the SSD backward (autograd "
         f"through the plain version, span mamba2_ssd_backward) {bwd_us / 1e3:.1f} ms over "
         f"{bwd_n} entries ({bwd_us / 1e3 / bwd_n:.2f} ms each); the flash forward kernel "
-        f"{flash:.2f} ms ({n_fire * per_fwd} launches); cuBLAS GEMMs {gemm:.1f} ms")
+        f"{flash:.2f} ms ({n_fire * per_fwd} launches), its backward (span "
+        f"flash_attention_backward) {fa_us / 1e3:.1f} ms over {fa_n} entries "
+        f"({fa_us / 1e3 / fa_n:.2f} ms each); the RMSNorm forward kernel {rms_fwd:.2f} ms, its "
+        f"backward (span rmsnorm_backward) {rms_us / 1e3:.1f} ms over {rms_n} entries; cuBLAS "
+        f"GEMMs {gemm:.1f} ms")
 
 
 def _train_losses(cfg, rcfg, lr: float, n_steps: int, batch: int, seq: int, device: str,
@@ -1488,6 +1541,98 @@ def phase_lr_probe(n_steps: int = 20) -> None:
         f"{max(abs(a - b) / abs(b) for a, b in zip(got['cuda'], got['cpu'])):.2e}")
 
 
+def _library_fns(csrc: Path, out: Path) -> tuple:
+    """``flash_attention_fwd`` and ``rmsnorm_fwd`` of the kernels under
+    ``csrc``, built with this checkout's flags into ``out``, typed."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{csrc}", "-o",
+                                     str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name in ("flash_attention", "rmsnorm")}
+    fns = []
+    for (name, proc), (entry, args) in zip(procs.items(), (("flash_attention_fwd", kfa._ARGS),
+                                                            ("rmsnorm_fwd", krms._ARGS))):
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{csrc / name}.cu does not build:\n{text}")
+        for line in text.splitlines():
+            if "warning" in line.lower() or "(C7" in line or (name == "flash_attention" and
+                                                               "spill" in line):
+                log(f"[baseline] {csrc.parents[3].name}/{name}: {line.strip()[:200]}")
+        fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), entry)
+        fn.argtypes, fn.restype = list(args), ctypes.c_int
+        fns.append(fn)
+    return tuple(fns)
+
+
+def phase_baseline(baselines: list) -> None:
+    """Opt-in (``--phases build,baseline --baseline DIR[,DIR...]``): the flash
+    and RMSNorm kernels of other checkouts (e.g. the parent commit unpacked
+    with ``git archive``), built from their sources with this checkout's
+    flags, timed in turns with this checkout's kernels on the same inputs and
+    card: baseline, current, current, baseline.  Every library is called
+    through its C entry point with preallocated outputs, so the times are the
+    kernels' and their launches', without the Python wrappers."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    libs = {"current": _library_fns(_build.CSRC, ROOT / "build" / "baseline" / "current")}
+    for i, base in enumerate(baselines):
+        libs[str(base)] = _library_fns(base.resolve() / "src" / "repro_torch" / "kernels" / "csrc",
+                                       ROOT / "build" / "baseline" / str(i))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def turns(what, calls):
+        cur = calls.pop("current")
+        for name, base in calls.items():
+            a1, c1 = sync_time_ms(base, iters=FAST_ITERS), sync_time_ms(cur, iters=FAST_ITERS)
+            c2, a2 = sync_time_ms(cur, iters=FAST_ITERS), sync_time_ms(base, iters=FAST_ITERS)
+            log(f"[baseline] {what}: {name} {a1:.4f} / {a2:.4f} ms, current {c1:.4f} / "
+                f"{c2:.4f} ms (turns: baseline, current, current, baseline); device "
+                f"{device_ms(base):.4f} against {device_ms(cur):.4f} ms")
+
+    for b, t, h, g, d in ((2, 1024, 32, 8, 128), (8, 512, 32, 32, 112), (8, 128, 32, 8, 128)):
+        sets = [tuple(_rand((b, t, n, d), torch.bfloat16, gen) for n in (h, g, g))
+                for _ in range(n_sets(2 * (2 * b * t * h * d + 2 * b * t * g * d)))]
+        outs = [torch.empty_like(a[0]) for a in sets]
+        calls = {}
+        for name, (fa, _) in libs.items():
+            def call(a, o, fa=fa, name=name):
+                _build.check(fa(a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), o.data_ptr(),
+                                b, t, t, h, g, d, 1, 0, d ** -0.5, _build.DT_BF16, stream), name)
+            try:
+                call(sets[0], outs[0])
+                check_close(f"{name} flash B={b} T={t} D={d}", outs[0],
+                            kfa.flash_attention_plain(*sets[0]), BF16_TOL, relative=True)
+            except (RuntimeError, AssertionError) as e:
+                if name == "current":
+                    raise
+                log(f"[baseline] {name} flash B={b} T={t} D={d} left out: {e}")
+                continue
+            calls[name] = [lambda a=a, o=o, call=call: call(a, o) for a, o in zip(sets, outs)]
+        turns(f"flash B={b} T={t} H={h} G={g} D={d} causal bf16", calls)
+    for rows, d in RMS_SHAPES:
+        sets = [(_rand((rows, d), torch.bfloat16, gen),
+                 (1 + 0.1 * _rand((d,), torch.float32, gen)).to(torch.bfloat16))
+                for _ in range(n_sets(rows * d * 2 * 2))]
+        outs = [torch.empty_like(a[0]) for a in sets]
+        calls = {}
+        for name, (_, rms) in libs.items():
+            def call(a, o, rms=rms, name=name):
+                _build.check(rms(a[0].data_ptr(), a[1].data_ptr(), o.data_ptr(), rows, d, 1e-5,
+                                 _build.DT_BF16, _build.DT_BF16, stream), name)
+            call(sets[0], outs[0])
+            check_close(f"{name} rmsnorm ({rows},{d})", outs[0], krms.rmsnorm_plain(*sets[0]),
+                        BF16_TOL, relative=True)
+            calls[name] = [lambda a=a, o=o, call=call: call(a, o) for a, o in zip(sets, outs)]
+        turns(f"rmsnorm ({rows},{d}) bf16", calls)
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1495,6 +1640,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + OPT_IN}; {OPT_IN} run only "
                          f"when named")
+    ap.add_argument("--baseline", default="",
+                    help="comma-separated checkouts whose flash and RMSNorm kernels the "
+                         "baseline phase times beside this one's")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1536,6 +1684,10 @@ def main(argv=None) -> int:
         phase_train_hybrid(results)
     if "lr_probe" in phases:
         phase_lr_probe()
+    if "baseline" in phases:
+        if not args.baseline:
+            raise SystemExit("the baseline phase needs --baseline DIR[,DIR...]")
+        phase_baseline([Path(p) for p in args.baseline.split(",")])
     kernels = [dict(r, launches=r.get("launches")) for r in results.values()]
     if "kernels" in phases and len(kernels) != len(ops.launch_counts()):
         raise AssertionError(f"kernels line lists {[k['name'] for k in kernels]}")

@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "paged_attention", "rwkv6_scan",
@@ -107,6 +109,12 @@ def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPt
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (an int, without
+    the ``torch.cuda.Stream`` object that ``current_stream`` builds)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, what: str) -> None:

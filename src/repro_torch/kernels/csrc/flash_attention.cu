@@ -7,33 +7,30 @@
 // return 0.
 //
 // Bound on the H100: operations.  At prefill widths (T in the hundreds to
-// thousands, D = 128) each K/V byte staged on chip is used by a whole
-// 64-row query tile, so the work is far above the card's ~295 flop/B ridge.
-// The TPU kernel walked K/V tiles as the sequential innermost grid axis with
+// thousands, D = 128) each K/V byte staged on chip is used by 64-128 query
+// rows, so the work is far above the card's ~295 flop/B ridge.  The TPU
+// kernel walked K/V tiles as the sequential innermost grid axis with
 // (m, l, acc) in VMEM scratch; Hopper runs CTAs in parallel and in no order,
-// so here one CTA owns one (batch, head, 64-row query tile) and loops over
-// K/V tiles itself.  Tiles past the causal diagonal or outside the chunk
-// band are never loaded; the ragged T / Tk edges are masked in the kernel,
-// so the caller pads nothing.  Query tiles are issued longest-first so
-// causal work balances across SMs.
+// so here one CTA owns a query tile and loops over K/V tiles itself.  Tiles
+// past the causal diagonal or outside the chunk band are never loaded; the
+// ragged T / Tk edges are masked in the kernel, so the caller pads nothing.
+// Query tiles are issued longest-first so causal work balances across SMs.
 //
 // Head dims 32, 64, 112 (zamba2-7b's shared block: 3584 / 32 heads) and 128.
-// Every loop over D steps in 16-byte groups of 8 bf16 or in 8-wide column
-// sets, and the mma k-steps are 16 wide: D only has to be a multiple of 16.
 //
-// Two bodies, chosen by the input dtype:
-// * bf16 (the serving path): tensor cores through mma.sync m16n8k16 with
-//   fp32 accumulate, the FlashAttention-2 register layout -- each of the 4
-//   warps owns 16 query rows, keeps its Q fragments, the 16x64 score tile
-//   and the 16xD output accumulator in registers, and feeds the score
-//   accumulator back as the A operand of P.V without a trip through shared
-//   memory.  K is staged row-major and V transposed in shared memory, with
-//   padded rows so fragment loads hit distinct banks.  (wgmma/TMA and a
-//   pipelined K/V ring are later work.)
+// Three bodies:
+// * bf16 at D = 112 and 128 (every ported model: granite-8b's prefill,
+//   zamba2-7b's shared block) -- built the Hopper way, below
+//   (flash_attention_wgmma);
+// * bf16 at D = 32 and 64 (no ported model; the tests cover them): tensor
+//   cores through mma.sync m16n8k16, the FlashAttention-2 register layout --
+//   each of 4 warps owns 16 rows of a 64-row query tile, K is staged
+//   row-major and V transposed in padded shared memory;
 // * fp32: scalar FMA on fp32 tiles in shared memory (each thread a 4x8
 //   block of the score tile and a 4 x D/8 block of the output), for the
 //   fp32 parity runs.
 #include "common.cuh"
+#include "hopper.cuh"
 
 constexpr int FA_THREADS = 128;
 constexpr int FA_BQ = 64;
@@ -366,6 +363,385 @@ __global__ void __launch_bounds__(FA_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body at D = 112 and 128: TMA ring, warp specialisation, wgmma
+// ---------------------------------------------------------------------------
+//
+// A CTA is 3 warpgroups.  Warpgroup 2 is the producer: it gives up its
+// registers (setmaxnreg 40) and one elected thread issues every TMA load.
+// Warpgroups 0 and 1 are consumers (setmaxnreg 232); each owns 64 query rows
+// and runs both products on wgmma with fp32 accumulators in registers:
+//   S (64 x 64) = Q (64 x D) . K^T, A and B from shared memory, K-major;
+//   O (64 x 128) += P (64 x 64, bf16 in registers) . V, V read MN-major
+//   through the descriptor's transpose bit, so no thread transposes V.
+// The S accumulator's layout is the A-register layout of the next product,
+// so P goes from softmax to the tensor cores without a shuffle.  A consumer
+// pipelines its tiles: it issues S(i) and P(i-1).V(i-1) together and runs
+// the softmax of tile i while the second product is on the tensor cores.
+//
+// Why 64-key tiles: ptxas fits the consumer path into the 168 registers a
+// thread that __launch_bounds__(384, 1) gives it, whatever setmaxnreg asks
+// at run time.  With 96- or 128-key tiles the pipeline's S, P and O (and
+// its descriptors) outgrow that; ptxas then spills and serialises the
+// wgmmas (C7512), and so it did with a lone producer warp (288 threads, 224
+// registers) and with Q's fragments held in registers.  All measured slower
+// (`chip_smoke.py --phases build,baseline`, PERF.md).
+//
+// Rows of a consumer: with GQA the nh = 4, 2 or 1 query heads of one KV
+// head (the largest that divides H / G) share the CTA, so each staged K/V
+// tile serves all of them: a consumer's 64 rows are 64 / nh positions x nh
+// heads, loaded as one TMA box (64 cols, nh heads, 64 / nh positions), row
+// m = position * nh + head.  granite-8b (32 / 8): 16 positions x 4 heads per
+// consumer, a 32-position query tile per CTA, so a 16-token prefill bucket
+// fills 64 rows; zamba2-7b (32 / 32): 64 positions of one head.
+//
+// Shared memory (1024-byte aligned tiles, each 128-byte row swizzled 128 B
+// by TMA): Q 2 x 16 KB; a ring of FW_STAGES = 4 stages of K (64 keys x 128
+// bf16, 16 KB) and V (16 KB): 32 + 4 x 32 = 160 KB, with 1 KB of alignment
+// slack, inside the 227 KB a CTA may take (a stage is released only after
+// the next tile's softmax, so the ring runs 2 tiles ahead of the loads).
+// One CTA an SM.
+//
+// D = 112 (zamba2: 224 B a row, not a 128-byte swizzle span): every tile is
+// 128 wide in shared memory and D wide in device memory.  TMA loads two
+// 64-wide boxes and fills the columns past D with zeros, which add nothing
+// to Q.K^T and give output columns that the TMA store clips; S takes D / 16
+// k-steps.  Ragged T and Tk edges are zero-filled the same way and masked in
+// the softmax; nothing is padded or copied by the caller.
+//
+// Barriers: q_full (the Q boxes), full[s] (K and V of stage s, counted in
+// bytes), empty[s] (8 consumer warps release stage s once the product that
+// read it has retired, wgmma.wait_group).  Tiles no row of the CTA can see
+// are never loaded; a consumer skips the products of a tile none of its rows
+// can see; the mask runs only on edge tiles (the causal diagonal, chunk
+// edges, the ragged Tk), full tiles take no mask code.  Softmax on the
+// accumulator: the row max over the 4 threads of a quad, 2^x on the SFU of
+// s * scale * log2(e) - m * scale * log2(e) as one FMA, the row sums kept
+// per thread and reduced once at the end; O is rescaled only when a row of
+// the warp raised its max.  Epilogue: O / l in bf16 through the consumer's
+// Q tile (swizzled as TMA expects) and one TMA store.
+
+constexpr int FW_BK = 64;                         // keys per K/V tile: S is m64n64
+constexpr int FW_STAGES = 4;
+constexpr int FW_SN = FW_BK / 8;                  // 8-key column groups of S
+constexpr int FW_PK = FW_BK / 16;                 // k-steps of P.V
+constexpr int FW_THREADS = 384;                   // 2 consumer warpgroups + 1 producer
+constexpr int FW_Q_BOX = 64 * 128;                // bytes of one 64-row x 64-col box
+constexpr int FW_Q_BYTES = 4 * FW_Q_BOX;          // 2 consumers x 2 column boxes
+constexpr int FW_KV_BOX = FW_BK * 128;            // one 64-col box of a K or V tile
+constexpr int FW_STAGE_BYTES = 4 * FW_KV_BOX;     // K and V, 2 column boxes each
+constexpr size_t FW_SMEM = 1024 + FW_Q_BYTES + (size_t)FW_STAGES * FW_STAGE_BYTES;
+
+// a position in the K/V ring: the stage, and the parity of its barriers' phase
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == FW_STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// 2^x on the SFU, flushing denormals (exp2f adds range fix-ups around it);
+// 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// live keys of a query at position tq: [lo, hi)
+__device__ __forceinline__ void key_range(int tq, int T_k, int causal, int chunk, int& lo,
+                                          int& hi) {
+  lo = chunk > 0 ? (tq / chunk) * chunk : 0;
+  hi = T_k;
+  if (causal) hi = min(hi, tq + 1);
+  if (chunk > 0) hi = min(hi, lo + chunk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+    flash_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap, int T_q, int T_k, int H, int G,
+                    int causal, int chunk, float scale_log2, int nh_log2) {
+  using namespace hopper;
+  constexpr int NK = D / 16;                      // k-steps of Q.K^T
+  extern __shared__ uint8_t fw_smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[FW_STAGES], empty[FW_STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(fw_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQ = smem;                             // consumer w: sQ + w * 2 * FW_Q_BOX
+  uint8_t* sKV = smem + FW_Q_BYTES;               // stage s: K boxes, then V boxes
+
+  const int rows_w = 64 >> nh_log2;               // query positions per consumer
+  const int iq = gridDim.x - 1 - blockIdx.x;      // longest causal rows first
+  const int hb = blockIdx.y << nh_log2, b = blockIdx.z;
+  const int g = hb / (H / G);
+  const int q0 = iq * 2 * rows_w;
+  const int q_last = min(q0 + 2 * rows_w, T_q) - 1;
+  int k_lo, k_hi, unused;
+  key_range(q0, T_k, causal, chunk, k_lo, unused);
+  key_range(q_last, T_k, causal, chunk, unused, k_hi);
+  const int kt0 = (k_lo / FW_BK) * FW_BK;
+  const int n_tiles = k_hi > kt0 ? (k_hi - kt0 + FW_BK - 1) / FW_BK : 0;
+
+  // warpgroup index, warp-uniform as the compiler sees it (a broadcast)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);                    // the 8 consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ---------------------------------------------------------
+    regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      mbar_expect_tx(&q_full, FW_Q_BYTES);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < 2; ++c)
+          tma_load_4d(sQ + (2 * w + c) * FW_Q_BOX, &qmap, &q_full, 64 * c, hb, q0 + w * rows_w, b);
+      Ring ring;
+      for (int i = 0; i < n_tiles; ++i, ring.advance()) {
+        mbar_wait(&empty[ring.stage], ring.phase ^ 1);  // the first round passes at once
+        uint8_t* st = sKV + ring.stage * FW_STAGE_BYTES;
+        const int k0 = kt0 + i * FW_BK;
+        mbar_expect_tx(&full[ring.stage], FW_STAGE_BYTES);
+        for (int c = 0; c < 2; ++c) {
+          tma_load_4d(st + c * FW_KV_BOX, &kmap, &full[ring.stage], 64 * c, g, k0, b);
+          tma_load_4d(st + (2 + c) * FW_KV_BOX, &vmap, &full[ring.stage], 64 * c, g, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers --------------------------------------------------------
+    regs_alloc<232>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t4 = lane % 4;
+    const int m0 = warp * 16 + lane / 4, m1 = m0 + 8;  // this thread's two rows
+    const int q0w = q0 + wg * rows_w;
+    const int last_w = min(q0w + rows_w, T_q) - 1;    // last valid position (< q0w: none)
+    const bool live_w = q0w < T_q;
+    // per-row live key ranges, and the tiles that need no mask for any row
+    int lo0, hi0, lo1, hi1, wk_lo, wk_hi, full_lo, full_hi;
+    key_range(q0w + (m0 >> nh_log2), T_k, causal, chunk, lo0, hi0);
+    key_range(q0w + (m1 >> nh_log2), T_k, causal, chunk, lo1, hi1);
+    key_range(q0w, T_k, causal, chunk, wk_lo, full_hi);
+    key_range(max(last_w, q0w), T_k, causal, chunk, full_lo, wk_hi);
+    // a positive factor leaves the running max in raw units; otherwise the
+    // scores are scaled first
+    const bool prescale = !(scale_log2 > 0.f);
+    const float f = prescale ? 1.f : scale_log2;
+
+    const uint32_t aQ = smem_u32(sQ + wg * 2 * FW_Q_BOX);
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float mr0 = -INFINITY, mr1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    // the tiles this consumer computes, [i_lo, i_hi) of the CTA's n_tiles;
+    // the others it only waits for and releases
+    int i_lo = 0, i_hi = 0;
+    if (live_w && wk_hi > wk_lo) {
+      i_lo = (wk_lo - kt0) / FW_BK;
+      i_hi = min(n_tiles, (wk_hi - kt0 + FW_BK - 1) / FW_BK);
+    }
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    };
+    // S = Q.K^T of the tile in `stage`
+    auto issue_s = [&](float (&sc)[4 * FW_SN], int stage) {
+      const uint32_t aK = smem_u32(sKV + stage * FW_STAGE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t off = (kk & 3) * 32;           // 16 columns of a 128-byte row
+        wgmma_m64n64k16_ss(sc, desc_sw128(aQ + (kk >> 2) * FW_Q_BOX + off, 16, 1024),
+                           desc_sw128(aK + (kk >> 2) * FW_KV_BOX + off, 16, 1024), kk > 0);
+      }
+    };
+    // O += P.V of the tile in `stage`, 16 keys (2048 bytes of V) a k-step
+    auto issue_pv = [&](const uint32_t (&pa)[FW_PK][4], int stage) {
+      const uint32_t aV = smem_u32(sKV + stage * FW_STAGE_BYTES) + 2 * FW_KV_BOX;
+#pragma unroll
+      for (int kk = 0; kk < FW_PK; ++kk)
+        wgmma_m64n128k16_rs_tb(o, pa[kk], desc_sw128(aV + kk * 2048, FW_KV_BOX, 1024));
+    };
+    // scores of the tile at key k0 -> probabilities in place, (m, l) updated;
+    // c0, c1 rescale the rows' O
+    auto softmax = [&](float (&sc)[4 * FW_SN], int k0, float& c0, float& c1) {
+      if (prescale) {
+#pragma unroll
+        for (int j = 0; j < 4 * FW_SN; ++j) sc[j] *= scale_log2;
+      }
+      if (!(k0 >= full_lo && k0 + FW_BK <= full_hi)) {  // an edge tile
+#pragma unroll
+        for (int n = 0; n < FW_SN; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = k0 + n * 8 + t4 * 2 + e;
+            if (!(kp >= lo0 && kp < hi0)) sc[4 * n + e] = -INFINITY;
+            if (!(kp >= lo1 && kp < hi1)) sc[4 * n + 2 + e] = -INFINITY;
+          }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < FW_SN; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(mr0, mx0), mn1 = fmaxf(mr1, mx1);
+      // a row with nothing live yet keeps l = O = 0 (exp2(-inf) = 0)
+      const float b0 = mn0 == -INFINITY ? 0.f : mn0 * f;
+      const float b1 = mn1 == -INFINITY ? 0.f : mn1 * f;
+      c0 = mr0 == -INFINITY ? 0.f : ex2(fmaf(mr0, f, -b0));
+      c1 = mr1 == -INFINITY ? 0.f : ex2(fmaf(mr1, f, -b1));
+      mr0 = mn0;
+      mr1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < FW_SN; ++n) {
+        sc[4 * n] = ex2(fmaf(sc[4 * n], f, -b0));
+        sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], f, -b0));
+        sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], f, -b1));
+        sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], f, -b1));
+        sum0 += sc[4 * n] + sc[4 * n + 1];
+        sum1 += sc[4 * n + 2] + sc[4 * n + 3];
+      }
+      l0 = l0 * c0 + sum0;                            // per-thread partial row sums
+      l1 = l1 * c1 + sum1;
+    };
+    auto to_bf16 = [&](const float (&sc)[4 * FW_SN], uint32_t (&pa)[FW_PK][4]) {
+#pragma unroll
+      for (int kk = 0; kk < FW_PK; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+
+    Ring ring;
+    mbar_wait(&q_full, 0);
+    for (int i = 0; i < i_lo; ++i, ring.advance()) {
+      mbar_wait(&full[ring.stage], ring.phase);
+      release(ring.stage);
+    }
+    if (i_hi > i_lo) {
+      // Software pipeline: P(i-1).V(i-1) runs on the tensor cores while this
+      // warpgroup computes the softmax of tile i; no wgmma is issued on a
+      // branch inside the loop.
+      uint32_t pa[FW_PK][4];                          // P of the previous tile, bf16
+      float sc[4 * FW_SN], c0, c1;
+      mbar_wait(&full[ring.stage], ring.phase);
+      wg_fence();
+      issue_s(sc, ring.stage);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      softmax(sc, kt0 + i_lo * FW_BK, c0, c1);        // O is 0: nothing to rescale
+      to_bf16(sc, pa);
+      int prev = ring.stage;
+      ring.advance();
+      for (int i = i_lo + 1; i < i_hi; ++i, ring.advance()) {
+        mbar_wait(&full[ring.stage], ring.phase);
+        wg_fence();
+        issue_s(sc, ring.stage);
+        wg_commit();
+        issue_pv(pa, prev);
+        wg_commit();
+        wg_wait<1>();                                 // S done; P.V may still run
+        fence_regs(sc);
+        softmax(sc, kt0 + i * FW_BK, c0, c1);
+        wg_wait<0>();                                 // P(i-1).V(i-1) done: O is ours
+        fence_regs(o);
+        release(prev);
+        if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {
+#pragma unroll
+          for (int n = 0; n < 16; ++n) {
+            o[4 * n] *= c0;
+            o[4 * n + 1] *= c0;
+            o[4 * n + 2] *= c1;
+            o[4 * n + 3] *= c1;
+          }
+        }
+        to_bf16(sc, pa);
+        prev = ring.stage;
+      }
+      wg_fence();                                     // the last tile's P.V
+      issue_pv(pa, prev);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(o);
+      release(prev);
+    }
+    for (int i = max(i_hi, i_lo); i < n_tiles; ++i, ring.advance()) {
+      mbar_wait(&full[ring.stage], ring.phase);
+      release(ring.stage);
+    }
+
+    // ---- epilogue: O / l in bf16 into this consumer's Q tile, TMA store ----
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+    uint8_t* sO = sQ + wg * 2 * FW_Q_BOX;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      uint8_t* box = sO + (n >> 3) * FW_Q_BOX + t4 * 4;
+      const int j = n & 7;
+      *reinterpret_cast<uint32_t*>(box + m0 * 128 + ((j ^ (m0 & 7)) << 4)) =
+          pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(box + m1 * 128 + ((j ^ (m1 & 7)) << 4)) =
+          pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (tid == 0 && live_w) {
+      tma_store_4d(&omap, sO, 0, hb, q0w, b);
+      tma_store_4d(&omap, sO + FW_Q_BOX, 64, hb, q0w, b);
+      tma_store_commit_and_wait();
+    }
+  }
+}
+
+template <int D>
+static cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
+                                int T_q, int T_k, int H, int G, int causal, int chunk,
+                                float scale, cudaStream_t st) {
+  const int rep = H / G;
+  const int nh_log2 = rep % 4 == 0 ? 2 : rep % 2 == 0 ? 1 : 0;
+  const uint32_t nh = 1u << nh_log2, rows_w = 64u >> nh_log2;
+  CUtensorMap qm, km, vm, om;
+  if (!hopper::encode_bf16_4d(&qm, q, D, H, T_q, B, nh, rows_w) ||
+      !hopper::encode_bf16_4d(&om, out, D, H, T_q, B, nh, rows_w) ||
+      !hopper::encode_bf16_4d(&km, k, D, G, T_k, B, 1, FW_BK) ||
+      !hopper::encode_bf16_4d(&vm, v, D, G, T_k, B, 1, FW_BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FW_SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_q + 2 * rows_w - 1) / (2 * rows_w), H >> nh_log2, B);
+  flash_attention_wgmma<D><<<grid, FW_THREADS, FW_SMEM, st>>>(
+      qm, km, vm, om, T_q, T_k, H, G, causal, chunk, scale * 1.4426950408889634f, nh_log2);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 static cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int T_q,
                           int T_k, int H, int G, int causal, int chunk, float scale,
@@ -410,8 +786,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     switch (D) {
       case 32: flash_attention_tc_kernel<32><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
       case 64: flash_attention_tc_kernel<64><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
-      case 112: flash_attention_tc_kernel<112><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
-      case 128: flash_attention_tc_kernel<128><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
+      case 112: return (int)launch_wgmma<112>(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);
+      case 128: return (int)launch_wgmma<128>(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);
       default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

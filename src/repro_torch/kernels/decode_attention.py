@@ -94,7 +94,7 @@ def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     part_acc = torch.empty((b, g, n_split, nrep, d), dtype=torch.float32, device=dev)
     counters = torch.zeros((b * g,), dtype=torch.int32, device=dev)
     fn = _build.function("decode_attention", "decode_attention_fwd", _ARGS)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     _build.check(fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), valid.data_ptr(),
                     out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
                     part_acc.data_ptr(), counters.data_ptr(), b, s, h, g, d, split_len,

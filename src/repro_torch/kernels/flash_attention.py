@@ -2,9 +2,12 @@
 
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_fwd``; at prefill widths
-it is bound by operations, so each CTA holds one 64-row query tile and
-streams K/V tiles past it, skipping tiles no row of it can see; bf16 runs
-on the tensor cores (``mma.sync``), fp32 on scalar FMA.
+it is bound by operations, so each CTA holds a query tile and streams K/V
+tiles past it, skipping tiles no row of it can see.  bf16 at head_dim 112
+and 128 runs the Hopper body (a TMA ring of K/V tiles fed by a producer
+warpgroup, two consumer warpgroups on ``wgmma``, the query heads of one KV
+head sharing a CTA), bf16 at 32 and 64 ``mma.sync``, fp32 scalar FMA.  The
+wrapper hands the kernel q, k and v as they are: no copy, no padding.
 :func:`flash_attention_plain` ports the blockwise oracle
 ``repro/models/flash_ref.py::flash_attention_ref``.
 """
@@ -115,7 +118,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if tk == 0:
         return out.zero_()
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGS)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, tk, h,
                     g, d, int(causal), int(chunk), scale, _DT[q.dtype], stream),
                  "flash_attention_fwd")

@@ -137,7 +137,7 @@ def mamba2_ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch
     if t == 0:
         return y, state.zero_()
     fn = _build.function("mamba2_ssd", "mamba2_ssd_fwd", _ARGS)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     _build.check(fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                     D.data_ptr(), y.data_ptr(), state.data_ptr(),
                     x.stride(0), x.stride(1), B.stride(0), B.stride(1), C.stride(0),

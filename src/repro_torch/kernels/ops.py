@@ -11,9 +11,9 @@ plain version,
 recomputed from the saved inputs (the reference's oracle-AD backward,
 ``repro/kernels/ops.py``); without grad mode, or when no input requires
 grad, they call the kernel directly, so serving pays no autograd cost.
-The WKV6 and SSD backwards run inside ``torch.profiler.record_function``
-spans, ``rwkv6_backward`` and ``mamba2_ssd_backward``, so a profile reads
-their device time within a step.
+Each backward runs inside a ``torch.profiler.record_function`` span,
+``flash_attention_backward``, ``rmsnorm_backward``, ``rwkv6_backward`` and
+``mamba2_ssd_backward``, so a profile reads its device time within a step.
 The decode and paged kernels serve only: they raise if an input requires
 grad while grad mode is on, so no gradient is dropped silently.  On CPU
 tensors the plain versions are differentiable as they are.
@@ -71,8 +71,9 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         plain = lambda q, k, v: _fa.flash_attention_plain(q, k, v, **ctx.opts)
-        return _plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], g) \
-            + (None, None, None)
+        with torch.profiler.record_function("flash_attention_backward"):
+            return _plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], g) \
+                + (None, None, None)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -85,7 +86,8 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         plain = lambda x, s: _rms.rmsnorm_plain(x, s, ctx.eps)
-        return _plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], g) + (None,)
+        with torch.profiler.record_function("rmsnorm_backward"):
+            return _plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], g) + (None,)
 
 
 class _RWKV6(torch.autograd.Function):
@@ -180,10 +182,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
 def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor, D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,T,H,P); dt (B,T,H) fp32; A (H,) <= 0; B/C (B,T,N) shared by the
-    heads; D (H,).  Returns (y (B,T,H,P), final state (B,H,P,N) fp32); on
-    the card the state carries no gradient, as in the reference."""
+    heads; D (H,).  Returns (y (B,T,H,P), final state (B,H,P,N) fp32); the
+    state carries no gradient on either device, as in the reference."""
     if _on_cpu(x):
-        return _ssd.mamba2_ssd_chunked_plain(x, dt, A, B, C, D)
+        y, state = _ssd.mamba2_ssd_chunked_plain(x, dt, A, B, C, D)
+        return y, state.detach()
     if not _needs_grad(x, dt, A, B, C, D):
         return _ssd.mamba2_ssd_cuda(x, dt, A, B, C, D)
     return _SSD.apply(x, dt, A, B, C, D)

@@ -88,7 +88,7 @@ def paged_decode_attention_cuda(q: torch.Tensor, kp: torch.Tensor, vp: torch.Ten
     part_acc = torch.empty((b, g, n_split, nrep, d), dtype=torch.float32, device=dev)
     counters = torch.zeros((b * g,), dtype=torch.int32, device=dev)
     fn = _build.function("paged_attention", "paged_decode_attention_fwd", _ARGS)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     _build.check(fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), block_tables.data_ptr(),
                     pos.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
                     part_acc.data_ptr(), counters.data_ptr(), b, bs, max_blocks, h, g, d,

@@ -109,7 +109,7 @@ def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.T
     if b == 0 or t == 0 or h == 0:
         return out
     fn = _build.function("rwkv6_scan", "rwkv6_fwd", _ARGS)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
                     out.data_ptr(), b, t, h, dk, _DT[r.dtype], stream), "rwkv6_fwd")
     launches += 1

@@ -24,7 +24,7 @@ and speaks only its verbs (``slot`` is a lane index):
 Implementations: :class:`DenseBackend` (one ``max_len``-wide lane per
 slot) and :class:`PagedBackend` (block-pooled KV with refcounted
 copy-on-write prefix caching over :class:`BlockManager`).  The recurrent
-layout comes with the recurrent families (ROADMAP §1 item 10), the
+layout comes with the recurrent families (ROADMAP §1 item 13), the
 speculative verbs (``append_tokens`` / ``verify_step`` / ``rollback`` /
 ``reset_lane``) with speculative decoding (item 7), and state snapshots with
 the recurrent layout that can use them: both layouts here resume a
@@ -428,7 +428,7 @@ def make_backend(model: Model, n_lanes: int, max_len: int, config) -> CacheBacke
     if choice == "recurrent":
         raise ValueError(f"backend='recurrent' on a {ds.kind!r}-state family (the "
                          f"recurrent layout comes with the recurrent families, "
-                         f"ROADMAP §1 item 10)")
+                         f"ROADMAP §1 item 13)")
     if choice == "dense":
         return DenseBackend(model, n_lanes, max_len)
     raise ValueError(f"unknown backend {choice!r}")

@@ -43,7 +43,14 @@ def _assert_close(got, ref, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(37, 4096), (1, 64), (130, 256), (5, 100)])
+@pytest.mark.parametrize("rows,d", [
+    (37, 4096), (1, 64), (130, 256), (5, 100),
+    (1061, 2048),   # a warp per row; 1061 rows: not a multiple of a CTA's 8
+    (1100, 4096),   # a warp per row at 16 packs a lane (bf16)
+    (1500, 3584),   # zamba2's block norm
+    (13, 7168),     # zamba2's gated norm: a CTA per row
+    (3, 8192),      # widest CTA-per-row row in bf16; fp32 takes the generic kernel
+])
 def test_rmsnorm_kernel(cuda_device, dtype, rows, d):
     gen = torch.Generator(device=cuda_device).manual_seed(rows)
     x, s = _rand(gen, dtype, rows, d), _rand(gen, dtype, d)
@@ -63,11 +70,32 @@ def test_rmsnorm_kernel(cuda_device, dtype, rows, d):
     (1, 96, 6, 3, 128, True, 0),        # head_dim 128
     (2, 300, 8, 8, 112, True, 0),       # head_dim 112 (zamba2's shared block), ragged
     (3, 1, 32, 8, 128, True, 0),        # one token
+    # the wgmma body (D 112 and 128): 128-key tiles; 4, 2 or 1 query heads
+    # of a KV head share a CTA (16, 32 or 64 positions per consumer)
+    (2, 129, 32, 8, 128, True, 0),      # one past a 128-key tile
+    (1, 257, 32, 8, 128, True, 0),
+    (2, 5, 32, 8, 128, True, 0),        # short prompts: T = 1 ... 64
+    (2, 16, 32, 8, 128, True, 0),       # granite's smallest bucket: one CTA's 4 x 16 rows
+    (1, 17, 32, 8, 128, True, 0),
+    (1, 33, 32, 8, 128, True, 0),
+    (1, 64, 32, 8, 128, True, 0),
+    (1, 77, 4, 2, 112, True, 0),        # D = 112, ragged, 2 heads a consumer
+    (2, 129, 32, 32, 112, True, 0),     # zamba2's heads, ragged
+    (2, 256, 8, 2, 128, True, 48),      # chunks below a 128-row tile
+    (1, 200, 8, 2, 128, True, 64),
+    (1, 190, 4, 4, 112, True, 48),
+    (1, (100, 300), 4, 2, 128, False, 0),   # Tk != T, non-causal
+    (2, (300, 77), 8, 8, 112, False, 0),
+    (1, (64, 200), 16, 2, 128, True, 0),    # Tk > T, causal: keys past T unseen
+    (2, 130, 4, 4, 128, True, 0),       # H / G = 1
+    (1, 200, 16, 4, 128, True, 0),      # H / G = 4
+    (1, 100, 32, 4, 128, True, 0),      # H / G = 8: two 4-head groups a KV head
 ])
 def test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk):
-    gen = torch.Generator(device=cuda_device).manual_seed(t * h)
-    q, k, v = _rand(gen, dtype, b, t, h, d), _rand(gen, dtype, b, t, g, d), \
-        _rand(gen, dtype, b, t, g, d)
+    t, tk = t if isinstance(t, tuple) else (t, t)   # (T, Tk) where they differ
+    gen = torch.Generator(device=cuda_device).manual_seed(t * h + tk - t)
+    q, k, v = _rand(gen, dtype, b, t, h, d), _rand(gen, dtype, b, tk, g, d), \
+        _rand(gen, dtype, b, tk, g, d)
     _assert_close(kfa.flash_attention_cuda(q, k, v, causal=causal, chunk=chunk),
                   kfa.flash_attention_plain(q, k, v, causal=causal, chunk=chunk), dtype)
 

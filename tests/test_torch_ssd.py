@@ -109,6 +109,25 @@ def test_ssd_gradients_match_jax(b, t, h, p, n):
         assert _grad_err(a, ref) < GRAD_TOL, name
 
 
+def test_loss_on_the_final_state_gives_the_reference_gradients():
+    """The reference drops the final state's cotangent (its ``_ssd_b``): a
+    loss on y and on the state gives y's gradients only.  The port's CPU
+    route hands back a state that carries no gradient, as the card does."""
+    b, t, h, p, n = 1, 70, 2, 16, 8
+    args = _ssd_inputs(5, b, t, h, p, n)
+
+    def f(*a):
+        y, s = kops.mamba2_ssd(*a)
+        return jnp.sum(y) + jnp.sum(s)
+    jgrads = jax.grad(f, argnums=tuple(range(6)))(*map(jnp.asarray, args))
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    y, s = ops.mamba2_ssd(*xs)
+    assert not s.requires_grad
+    tgrads = torch.autograd.grad(y.sum() + s.sum(), xs)
+    for name, a, ref in zip(("x", "dt", "A", "B", "C", "D"), tgrads, jgrads):
+        assert _grad_err(a, ref) < GRAD_TOL, name
+
+
 def test_strong_decay_stays_finite_and_matches_the_recurrence():
     """dt up to 5 at A = -16: the chunk's log-decay reaches ~ -5000.  The
     plain version masks the exponent before exp, so forward and gradients
