@@ -12,11 +12,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
    rwkv6 kernel at rwkv6-1.6b's training shape and the SSD kernel, flash
    (head_dim 112) and RMSNorm at zamba2-7b's (the decode kernel also on a
    lane with no valid position, the paged kernel over 16 lanes' block
-   tables with shared blocks, the rwkv6 and SSD kernels also against their
-   token recurrences under strong decay), and time kernel, plain version
-   and a library call (and the rwkv6 and SSD backwards); flash and RMSNorm
-   also by their kernels' device time alone (torch.profiler), beside the
-   library call's;
+   tables with shared blocks, both decode kernels at head_dim 112 in bf16
+   and fp32, the rwkv6 and SSD kernels also against their token
+   recurrences under strong decay), and time kernel, plain version and a
+   library call (and the rwkv6 and SSD backwards); flash, RMSNorm and the
+   two decode kernels also by their kernels' device time alone
+   (torch.profiler), beside the library call's;
 4. reduced granite in fp32 with the same weights on the card (kernels) and
    on the CPU (plain versions): logits and greedy ServeEngine tokens agree,
    over dense lanes and over the paged pool with the prefix cache (a run
@@ -29,11 +30,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
 6. full-width granite-8b (36 layers, bf16, random seeded weights) served
    through ServeEngine over dense lanes: 16 requests, every kernel of the
    dense path launched; then the decode step, a prefill dispatch and the
-   sampler are timed;
+   sampler are timed, and the profile of a decode step gives the decode
+   kernel's share of the device time;
 7. the same weights served over the paged pool with the prefix cache: 32
    chat requests behind a shared 512-token system prompt, then 4 repeats
    (full hits), on a pool small enough to preempt; the paged kernel runs 36
-   times a decode step and the dense decode kernel never;
+   times a decode step and the dense decode kernel never; the profile of an
+   engine step at batch 16 gives the paged kernel's share;
 8. ``parity_train``: reduced rwkv6, granite and zamba2 (4 layers, fp32),
    and rwkv6-1.6b and zamba2-7b at full width cut to 2 layers, the same
    weights on the card (kernels, their gradients through the autograd
@@ -63,8 +66,9 @@ line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the checkout beside it, the script exits nonzero and prints no
 result.  ``--phases`` runs a subset (default: all); ``--phases
 build,baseline --baseline DIR[,DIR...]`` (never run by default) builds the
-flash and RMSNorm kernels of other checkouts, e.g. the parent commit
-unpacked with ``git archive``, and times them in turns with this one's.
+flash, RMSNorm, dense decode and paged decode kernels of other checkouts,
+e.g. the parent commit unpacked with ``git archive``, and times them in
+turns with this one's.
 """
 
 from __future__ import annotations
@@ -342,19 +346,20 @@ def phase_kernels(results: dict) -> None:
         check_close(f"decode {name} f32", kdec.decode_attention_cuda(q32, ck32, cv32, mask, scale),
                     kdec.decode_attention_plain(q32, ck32, cv32, mask, scale), F32_TOL,
                     relative=False)
-    ms = sync_time_ms([lambda a=a: kdec.decode_attention_cuda(a[0], a[1], a[2], valid, scale)
-                       for a in sets])
+    mask4 = valid[:, None, None, :]
+    kern = [lambda a=a: kdec.decode_attention_cuda(a[0], a[1], a[2], valid, scale) for a in sets]
+    lib = [lambda a=a: _sdpa_gqa(a[0], a[1], a[2], attn_mask=mask4) for a in sets]
+    ms, lib_ms = sync_time_ms(kern, iters=FAST_ITERS), sync_time_ms(lib, iters=FAST_ITERS)
+    dev_ms, lib_dev_ms = device_ms(kern), device_ms(lib)
     plain_ms = sync_time_ms([lambda a=a: kdec.decode_attention_plain(a[0], a[1], a[2], valid,
                                                                      scale) for a in sets])
-    mask4 = valid[:, None, None, :]
-    lib_ms = sync_time_ms([lambda a=a: _sdpa_gqa(a[0], a[1], a[2], attn_mask=mask4)
-                           for a in sets])
     live = int(valid.sum().item())                    # positions this data needs read
     b_ms, b_by = bound(4.0 * h * d * live, PEAK_BF16_FLOPS,
                        2 * live * g * d * 2 + 2 * 2 * b * h * d + b * s)
     log(f"[kernels] decode B={b} S={s} H={h} G={g} D={d} bf16 ({live} live positions): "
-        f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"sdpa {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        f"max_abs_err {err:.3e}  kernel {ms:.4f} ms (device {dev_ms:.4f})  plain "
+        f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (device {lib_dev_ms:.4f})  bound "
+        f"{b_ms:.4f} ms ({b_by})")
     # a lane with no valid position: the mean of V over the span, as the TPU
     # kernel's finite mask gives
     empty = valid.clone()
@@ -372,8 +377,11 @@ def phase_kernels(results: dict) -> None:
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:64", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        device_ms=dev_ms, library_device_ms=lib_dev_ms,
         shape=f"B={b} S={s} H={h} G={g} D={d} bf16, {live} live positions")
     paged_kernel(results, gen)
+    decode_floor(results, gen)
+    decode_d112(gen)
     rwkv6_kernel(results, gen)
     ssd_kernel(results, gen)
 
@@ -552,9 +560,9 @@ def paged_kernel(results: dict, gen: torch.Generator) -> None:
               torch.as_tensor(pos32, dtype=torch.int32, device="cuda"))
     check_close("paged f32", kpaged.paged_decode_attention_cuda(*args32, 0.125),
                 kpaged.paged_decode_attention_plain(*args32, 0.125), F32_TOL, relative=False)
-    ms = sync_time_ms([lambda a=a: kpaged.paged_decode_attention_cuda(a[0], a[1], a[2], bt,
-                                                                      pos_t, scale)
-                       for a in sets])
+    kern = [lambda a=a: kpaged.paged_decode_attention_cuda(a[0], a[1], a[2], bt, pos_t, scale)
+            for a in sets]
+    ms, dev_ms = sync_time_ms(kern, iters=FAST_ITERS), device_ms(kern)
     plain_ms = sync_time_ms([lambda a=a: kpaged.paged_decode_attention_plain(
         a[0], a[1], a[2], bt, pos_t, scale) for a in sets])
     span = max_blocks * bs
@@ -568,7 +576,8 @@ def paged_kernel(results: dict, gen: torch.Generator) -> None:
     check_close("gather + SDPA vs paged plain", gather_sdpa(sets[0]),
                 kpaged.paged_decode_attention_plain(q, kp, vp, bt, pos_t, scale), BF16_TOL,
                 relative=True)
-    lib_ms = sync_time_ms([lambda a=a: gather_sdpa(a) for a in sets])
+    lib = [lambda a=a: gather_sdpa(a) for a in sets]
+    lib_ms, lib_dev_ms = sync_time_ms(lib, iters=FAST_ITERS), device_ms(lib)
     # bytes: each live pool row (K and V) read once -- a shared block once --
     # plus q, out, tables, pos; operations: every lane's own live positions
     live_rows = {int(tables[lane, p // bs]) * bs + p % bs
@@ -579,17 +588,84 @@ def paged_kernel(results: dict, gen: torch.Generator) -> None:
                        + 4 * b)
     log(f"[kernels] paged B={b} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16 "
         f"({n_live} live positions, {len(live_rows)} distinct pool rows, pool {n_pool} blocks): "
-        f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"gather+sdpa {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        f"max_abs_err {err:.3e}  kernel {ms:.4f} ms (device {dev_ms:.4f})  plain "
+        f"{plain_ms:.4f} ms  gather+sdpa {lib_ms:.4f} ms (device {lib_dev_ms:.4f})  bound "
+        f"{b_ms:.4f} ms ({b_by})")
     results["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:67", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        device_ms=dev_ms, library_device_ms=lib_dev_ms,
         library="kp/vp[block_tables] gathers + SDPA (enable_gqa): two calls, no single "
                 "PyTorch call computes the function",
         shape=f"B={b} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16, {n_live} live "
               f"positions")
+
+
+def decode_floor(results: dict, gen: torch.Generator) -> None:
+    """Each decode kernel's device time at its phase-3 geometry with one live
+    position a lane (the launch, layout reads and merge alone) and with
+    every position live (the streaming rate, against the bytes bound)."""
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import paged_attention as kpaged
+    bf, h, g, d, scale = torch.bfloat16, 32, 8, 128, 128 ** -0.5
+    b, s = 8, 1024
+    sets = [tuple(_rand((b, n, m, d), bf, gen) for n, m in ((1, h), (s, g), (s, g)))
+            for _ in range(n_sets(2 * b * s * g * d * 2))]
+    pb, bs, max_blocks = 16, 16, 64
+    n_pool = 1 + pb * max_blocks
+    tables = torch.arange(1, n_pool, dtype=torch.int32, device="cuda").reshape(pb, max_blocks)
+    psets = [tuple(_rand(shape, bf, gen) for shape in ((pb, 1, h, d), (n_pool, bs, g, d),
+                                                       (n_pool, bs, g, d)))
+             for _ in range(n_sets(2 * n_pool * bs * g * d * 2))]
+    for name, live in (("dense_1_live", 1), ("dense_all_live", s)):
+        valid = (torch.arange(s, device="cuda") < live).expand(b, s).contiguous()
+        t = device_ms([lambda a=a: kdec.decode_attention_cuda(*a, valid, scale) for a in sets])
+        b_ms, _ = bound(0.0, PEAK_BF16_FLOPS, 2 * b * live * g * d * 2)
+        results["decode_attention"][f"device_ms_{name[6:]}"] = t
+        log(f"[kernels] decode B={b} S={s} H={h} G={g} D={d} bf16, {live} live position(s) a "
+            f"lane: device {t:.4f} ms, bytes bound {b_ms:.4f} ms")
+    for name, p in (("1_live", 0), ("all_live", max_blocks * bs - 1)):
+        pos = torch.full((pb,), p, dtype=torch.int32, device="cuda")
+        t = device_ms([lambda a=a: kpaged.paged_decode_attention_cuda(*a, tables, pos, scale)
+                       for a in psets])
+        b_ms, _ = bound(0.0, PEAK_BF16_FLOPS, 2 * pb * (p + 1) * g * d * 2)
+        results["paged_decode_attention"][f"device_ms_{name}"] = t
+        log(f"[kernels] paged B={pb} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16, "
+            f"{p + 1} live position(s) a lane: device {t:.4f} ms, bytes bound {b_ms:.4f} ms")
+
+
+def decode_d112(gen: torch.Generator) -> None:
+    """Both decode kernels at head_dim 112, bf16 and fp32, against their
+    plain versions: zamba2-7b's shared block (32 query heads over 32 KV
+    heads) and a GQA geometry (32 over 8); 8 lanes of a 512-position span,
+    ragged, lane 0 full and lane 1 with no live position (the mean of V)."""
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import paged_attention as kpaged
+    rng = np.random.default_rng(1)
+    b, d, bs, max_blocks = 8, 112, 16, 32
+    span = bs * max_blocks
+    for h, g in ((32, 32), (32, 8)):
+        pos = rng.integers(0, span, size=b)
+        pos[0], pos[1] = span - 1, -1
+        tables, n_pool = paged_tables(rng, pos, bs, max_blocks, n_shared=2, shared_lanes=4)
+        bt = torch.as_tensor(tables, device="cuda")
+        pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+        valid = torch.arange(span, device="cuda")[None, :] <= pos_t[:, None]
+        for dt, tol, rel in ((torch.bfloat16, BF16_TOL, True), (torch.float32, F32_TOL, False)):
+            q = _rand((b, 1, h, d), dt, gen)
+            ck, cv = _rand((b, span, g, d), dt, gen), _rand((b, span, g, d), dt, gen)
+            check_close(f"decode D=112 H={h} G={g} {dt}",
+                        kdec.decode_attention_cuda(q, ck, cv, valid, d ** -0.5),
+                        kdec.decode_attention_plain(q, ck, cv, valid, d ** -0.5), tol, rel)
+            kp, vp = _rand((n_pool, bs, g, d), dt, gen), _rand((n_pool, bs, g, d), dt, gen)
+            check_close(f"paged D=112 H={h} G={g} {dt}",
+                        kpaged.paged_decode_attention_cuda(q, kp, vp, bt, pos_t, d ** -0.5),
+                        kpaged.paged_decode_attention_plain(q, kp, vp, bt, pos_t, d ** -0.5),
+                        tol, rel)
+    log(f"[kernels] decode and paged at head_dim 112 (H=32 over G=32 and G=8, bf16 and f32, "
+        f"a lane with no live position) agree with their plain versions")
 
 
 def rwkv6_flops(b: int, t: int, h: int, dk: int, c: int = 16) -> float:
@@ -960,7 +1036,8 @@ def phase_serve(results: dict, model, params, n_requests: int = 16,
         f"call (the tokens' copy to the host included): greedy {sample_ms['greedy']:.3f} ms, "
         f"stochastic (temperature 0.8, top_k 50, top_p 0.95) "
         f"{sample_ms['stochastic']:.3f} ms")
-    profile_step(lambda: eng.backend.step(params, toks, active), "decode step, batch 8")
+    profile_step(lambda: eng.backend.step(params, toks, active), "decode step, batch 8",
+                 share="DenseLayout")
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4, 512)),
                              device=model.device)
     lens = torch.full((4,), 512, dtype=torch.int32, device=model.device)
@@ -1063,7 +1140,8 @@ def phase_serve_paged(results: dict, model, params) -> None:
             eng.step()
         if eng.active() != max_batch or eng.metrics_snapshot().preemptions != snap.preemptions:
             raise AssertionError(f"{eng.active()} of {max_batch} lanes busy")
-        profile_step(eng.step, f"paged engine step, batch {max_batch}, 612 positions a lane")
+        profile_step(eng.step, f"paged engine step, batch {max_batch}, 612 positions a lane",
+                     share="PagedLayout")
 
 
 def time_sampler(logits: torch.Tensor, n_lanes: int, iters: int = 10) -> dict:
@@ -1087,13 +1165,16 @@ def time_sampler(logits: torch.Tensor, n_lanes: int, iters: int = 10) -> dict:
     return out
 
 
-def profile_step(fn, what: str, top: int = 8, reps: int = 3, spans: tuple = ()):
+def profile_step(fn, what: str, top: int = 8, reps: int = 3, spans: tuple = (),
+                 share: str = ""):
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler)
     against the unprofiled wall time of a call; returns the kernel rows
-    (device us over the calls, launches, name).  With ``spans``, host
-    activity is traced too and the device time of the kernels launched
-    inside each named ``record_function`` span is returned beside the rows
-    ({name: (device us over the calls, entries)})."""
+    (device us over the calls, launches, name).  With ``share``, the kernels
+    whose name holds that string are summed and their share of the device
+    time logged.  With ``spans``, host activity is traced too and the device
+    time of the kernels launched inside each named ``record_function`` span
+    is returned beside the rows ({name: (device us over the calls,
+    entries)})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1119,6 +1200,14 @@ def profile_step(fn, what: str, top: int = 8, reps: int = 3, spans: tuple = ()):
         f"kernel launches")
     for t_us, n, key in rows[:top]:
         log(f"[profile]   {t_us / reps / 1e3:8.3f} ms  {n // reps:5d} launches  {key[:90]}")
+    if share:
+        mine = [r for r in rows if share in r[2]]
+        if not mine:
+            raise AssertionError(f"profile of {what}: no kernel named *{share}*")
+        t_us = sum(r[0] for r in mine) / reps
+        log(f"[profile]   kernels *{share}*: {t_us / 1e3:.4f} ms a call, "
+            f"{sum(r[1] for r in mine) // reps} launches, {100 * t_us / busy:.1f}% of the "
+            f"device time")
     if not spans:
         return rows
     found = {e.key: (e.device_time_total, e.count) for e in table
@@ -1541,51 +1630,70 @@ def phase_lr_probe(n_steps: int = 20) -> None:
         f"{max(abs(a - b) / abs(b) for a, b in zip(got['cuda'], got['cpu'])):.2e}")
 
 
-def _library_fns(csrc: Path, out: Path) -> tuple:
-    """``flash_attention_fwd`` and ``rmsnorm_fwd`` of the kernels under
-    ``csrc``, built with this checkout's flags into ``out``, typed."""
+# the C entry points the baseline phase calls: (source, entry, module of its argtypes)
+BASELINE_LIBS = (("flash_attention", "flash_attention_fwd", "flash_attention"),
+                 ("rmsnorm", "rmsnorm_fwd", "rmsnorm"),
+                 ("decode_attention", "decode_attention_fwd", "decode_attention"),
+                 ("paged_attention", "paged_decode_attention_fwd", "paged_attention"))
+
+
+def _library_fns(checkout: Path, out: Path) -> dict:
+    """The C entry points of BASELINE_LIBS built from ``checkout``'s kernel
+    sources with this checkout's flags into ``out``, typed, and the
+    checkout's own ``split_plan`` (how its decode wrappers cut the span)."""
     import ctypes
+    import importlib.util
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import rmsnorm as krms
+    csrc = checkout / "src" / "repro_torch" / "kernels" / "csrc"
     out.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{csrc}", "-o",
                                      str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name in ("flash_attention", "rmsnorm")}
-    fns = []
-    for (name, proc), (entry, args) in zip(procs.items(), (("flash_attention_fwd", kfa._ARGS),
-                                                            ("rmsnorm_fwd", krms._ARGS))):
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
+             for name, _, _ in BASELINE_LIBS}
+    fns = {}
+    for name, entry, module in BASELINE_LIBS:
+        text, _ = procs[name].communicate()
+        if procs[name].returncode != 0:
             raise RuntimeError(f"{csrc / name}.cu does not build:\n{text}")
         for line in text.splitlines():
             if "warning" in line.lower() or "(C7" in line or (name == "flash_attention" and
                                                                "spill" in line):
-                log(f"[baseline] {csrc.parents[3].name}/{name}: {line.strip()[:200]}")
+                log(f"[baseline] {checkout.name}/{name}: {line.strip()[:200]}")
         fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), entry)
-        fn.argtypes, fn.restype = list(args), ctypes.c_int
-        fns.append(fn)
-    return tuple(fns)
+        fn.argtypes = list(importlib.import_module(f"repro_torch.kernels.{module}")._ARGS)
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    spec = importlib.util.spec_from_file_location(
+        f"_baseline_decode_{out.name}", csrc.parent / "decode_attention.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    fns["split_plan"] = mod.split_plan
+    return fns
 
 
 def phase_baseline(baselines: list) -> None:
-    """Opt-in (``--phases build,baseline --baseline DIR[,DIR...]``): the flash
-    and RMSNorm kernels of other checkouts (e.g. the parent commit unpacked
-    with ``git archive``), built from their sources with this checkout's
-    flags, timed in turns with this checkout's kernels on the same inputs and
-    card: baseline, current, current, baseline.  Every library is called
-    through its C entry point with preallocated outputs, so the times are the
-    kernels' and their launches', without the Python wrappers."""
+    """Opt-in (``--phases build,baseline --baseline DIR[,DIR...]``): the flash,
+    RMSNorm, dense decode and paged decode kernels of other checkouts (e.g.
+    the parent commit unpacked with ``git archive``), built from their
+    sources with this checkout's flags, timed in turns with this checkout's
+    kernels on the same inputs and card: baseline, current, current,
+    baseline.  Every library is called through its C entry point with
+    preallocated outputs and scratch, so the times are the kernels' and their
+    launches', without the Python wrappers; the decode kernels with each
+    checkout's own split plan, and with the memset of their merge counters
+    before every call where a kernel leaves them nonzero (as the wrapper of
+    such a kernel does)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import paged_attention as kpaged
     from repro_torch.kernels import rmsnorm as krms
-    libs = {"current": _library_fns(_build.CSRC, ROOT / "build" / "baseline" / "current")}
+    libs = {"current": _library_fns(ROOT, ROOT / "build" / "baseline" / "current")}
     for i, base in enumerate(baselines):
-        libs[str(base)] = _library_fns(base.resolve() / "src" / "repro_torch" / "kernels" / "csrc",
-                                       ROOT / "build" / "baseline" / str(i))
+        libs[str(base)] = _library_fns(base.resolve(), ROOT / "build" / "baseline" / str(i))
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def turns(what, calls):
         cur = calls.pop("current")
@@ -1601,8 +1709,8 @@ def phase_baseline(baselines: list) -> None:
                 for _ in range(n_sets(2 * (2 * b * t * h * d + 2 * b * t * g * d)))]
         outs = [torch.empty_like(a[0]) for a in sets]
         calls = {}
-        for name, (fa, _) in libs.items():
-            def call(a, o, fa=fa, name=name):
+        for name, fns in libs.items():
+            def call(a, o, fa=fns["flash_attention"], name=name):
                 _build.check(fa(a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), o.data_ptr(),
                                 b, t, t, h, g, d, 1, 0, d ** -0.5, _build.DT_BF16, stream), name)
             try:
@@ -1622,8 +1730,8 @@ def phase_baseline(baselines: list) -> None:
                 for _ in range(n_sets(rows * d * 2 * 2))]
         outs = [torch.empty_like(a[0]) for a in sets]
         calls = {}
-        for name, (_, rms) in libs.items():
-            def call(a, o, rms=rms, name=name):
+        for name, fns in libs.items():
+            def call(a, o, rms=fns["rmsnorm"], name=name):
                 _build.check(rms(a[0].data_ptr(), a[1].data_ptr(), o.data_ptr(), rows, d, 1e-5,
                                  _build.DT_BF16, _build.DT_BF16, stream), name)
             call(sets[0], outs[0])
@@ -1631,6 +1739,67 @@ def phase_baseline(baselines: list) -> None:
                         BF16_TOL, relative=True)
             calls[name] = [lambda a=a, o=o, call=call: call(a, o) for a, o in zip(sets, outs)]
         turns(f"rmsnorm ({rows},{d}) bf16", calls)
+
+    # the decode kernels at phase 3's shapes: dense B=8 S=1024 (random lane
+    # lengths) and paged B=16 bs=16 over 64 blocks (lanes of 16-1023 positions)
+    h, g, d = 32, 8, 128
+    scale = d ** -0.5
+    b, s = 8, 1024
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lens[0], lens[1] = 1, s
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    rng = np.random.default_rng(0)
+    pb, bs, max_blocks = 16, 16, 64
+    pos = rng.integers(16, 1024, size=pb)
+    pos[0], pos[1] = 1023, 16
+    tables, n_pool = paged_tables(rng, pos, bs, max_blocks, n_shared=4, shared_lanes=8)
+    bt = torch.as_tensor(tables, device="cuda")
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    dense_sets = [(_rand((b, 1, h, d), torch.bfloat16, gen),
+                   _rand((b, s, g, d), torch.bfloat16, gen),
+                   _rand((b, s, g, d), torch.bfloat16, gen))
+                  for _ in range(n_sets(2 * b * s * g * d * 2))]
+    paged_sets = [(_rand((pb, 1, h, d), torch.bfloat16, gen),
+                   _rand((n_pool, bs, g, d), torch.bfloat16, gen),
+                   _rand((n_pool, bs, g, d), torch.bfloat16, gen))
+                  for _ in range(n_sets(2 * n_pool * bs * g * d * 2))]
+    cases = (
+        (f"decode B={b} S={s} H={h} G={g} D={d} bf16 ({int(valid.sum())} live positions)",
+         dense_sets, b, s, kdec.decode_attention_plain(*dense_sets[0], valid, scale),
+         lambda fns, a, o, ns, sl, sc: fns["decode_attention"](
+             a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), valid.data_ptr(), o.data_ptr(),
+             *sc, b, s, h, g, d, sl, ns, scale, _build.DT_BF16, stream)),
+        (f"paged B={pb} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16 "
+         f"({int((pos + 1).sum())} live positions)",
+         paged_sets, pb, max_blocks * bs, kpaged.paged_decode_attention_plain(
+             *paged_sets[0], bt, pos_t, scale),
+         lambda fns, a, o, ns, sl, sc: fns["paged_attention"](
+             a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), bt.data_ptr(), pos_t.data_ptr(),
+             o.data_ptr(), *sc, pb, bs, max_blocks, h, g, d, ns, scale, _build.DT_BF16, stream)))
+    keep = []                              # scratch the calls point into
+    for what, sets, nb, span, ref, entry in cases:
+        outs = [torch.empty_like(a[0]) for a in sets]
+        calls = {}
+        for name, fns in libs.items():
+            split_len, n_split = fns["split_plan"](nb, g, span, sms)
+            slots = nb * g * n_split
+            part = torch.empty((slots * kdec.MAX_NREP * (2 + d),), dtype=torch.float32,
+                               device="cuda")
+            counters = torch.zeros((nb * g,), dtype=torch.int32, device="cuda")
+            keep.append((part, counters))
+            sc = (part.data_ptr(), part.data_ptr() + 4 * slots * kdec.MAX_NREP,
+                  part.data_ptr() + 8 * slots * kdec.MAX_NREP, counters.data_ptr())
+
+            def call(a, o, fns=fns, n_split=n_split, split_len=split_len, sc=sc, name=name):
+                _build.check(entry(fns, a, o, n_split, split_len, sc), name)
+            call(sets[0], outs[0])
+            check_close(f"{name} {what}", outs[0], ref, BF16_TOL, relative=True)
+            if counters.any():             # a kernel that needs its counters zeroed per call
+                def call(a, o, call=call, counters=counters):
+                    counters.zero_()
+                    call(a, o)
+            calls[name] = [lambda a=a, o=o, call=call: call(a, o) for a, o in zip(sets, outs)]
+        turns(what, calls)
 
 
 # ---------------------------------------------------------------------------
@@ -1641,8 +1810,8 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES + OPT_IN}; {OPT_IN} run only "
                          f"when named")
     ap.add_argument("--baseline", default="",
-                    help="comma-separated checkouts whose flash and RMSNorm kernels the "
-                         "baseline phase times beside this one's")
+                    help="comma-separated checkouts whose flash, RMSNorm, decode and paged "
+                         "kernels the baseline phase times beside this one's")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():

@@ -100,14 +100,10 @@ def decode_slots(cfg: ModelConfig, pos: torch.Tensor,
     The write slot is ``min(pos, span-1)`` (``pos % span`` for
     chunked_local's ring buffer, a sliding-window approximation of chunked
     attention at decode time); ``valid`` marks every written slot."""
-    b = pos.shape[0]
-    if cfg.attention == "chunked_local":
-        slot = pos % span
-    else:
-        slot = torch.clamp(pos, max=span - 1)
-    rows = torch.arange(b, device=pos.device) * span + slot.long()
-    valid = torch.arange(span, device=pos.device)[None, :] <= torch.clamp(
-        pos, max=span - 1)[:, None]
+    last = torch.clamp(pos, max=span - 1)
+    slot = pos % span if cfg.attention == "chunked_local" else last
+    rows = torch.arange(0, pos.shape[0] * span, span, device=pos.device) + slot   # int64
+    valid = torch.arange(span, device=pos.device)[None, :] <= last[:, None]
     return rows, valid
 
 

@@ -104,7 +104,9 @@ def test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,g,d,span", [(2, 4, 2, 32, 96), (1, 8, 8, 64, 64),
                                           (3, 32, 8, 128, 300), (8, 32, 8, 128, 1024),
-                                          (2, 8, 1, 64, 2000)])
+                                          (2, 8, 1, 64, 2000),
+                                          (2, 32, 32, 112, 300),   # zamba2's shared block
+                                          (3, 16, 4, 112, 200)])   # head_dim 112, GQA
 def test_decode_kernel(cuda_device, dtype, b, h, g, d, span):
     gen = torch.Generator(device=cuda_device).manual_seed(span)
     q, ck, cv = _rand(gen, dtype, b, 1, h, d), _rand(gen, dtype, b, span, g, d), \
@@ -165,12 +167,69 @@ def _paged_inputs(gen, dtype, b, h, g, d, bs, max_blocks, pos):
     (4, 8, 2, 64, 4, 5, [19, 3, 12, 8]),
     (16, 32, 8, 128, 16, 64, [16 + 63 * i for i in range(16)]),
     (2, 8, 2, 32, 8, 2, [40, 5]),
+    (2, 32, 32, 112, 16, 8, [100, 7]),         # zamba2's shared block, head_dim 112
+    (3, 16, 4, 112, 16, 5, [70, 0, 33]),       # head_dim 112, GQA
+    (16, 32, 8, 128, 16, 64, [1023] + [16] * 15),   # one long lane among short ones
 ])
 def test_paged_kernel(cuda_device, dtype, b, h, g, d, bs, max_blocks, pos):
     gen = torch.Generator(device=cuda_device).manual_seed(sum(pos))
     args = _paged_inputs(gen, dtype, b, h, g, d, bs, max_blocks, pos)
     _assert_close(kpaged.paged_decode_attention_cuda(*args, d ** -0.5),
                   kpaged.paged_decode_attention_plain(*args, d ** -0.5), dtype)
+
+
+def _scratch_counters(t):
+    """The merge counters the decode wrappers keep for the current stream of
+    ``t``'s device."""
+    held = kdec._SCRATCH[(t.device.index, torch.cuda.current_stream(t.device).cuda_stream)]
+    return held.tensors[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_calls_repeat_and_leave_counters_at_zero(cuda_device, dtype):
+    """The kept counters return to 0 after every call (no memset between
+    calls), so back-to-back calls give equal outputs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    b, h, g, d, span = 4, 32, 8, 128, 1024
+    q, ck, cv = _rand(gen, dtype, b, 1, h, d), _rand(gen, dtype, b, span, g, d), \
+        _rand(gen, dtype, b, span, g, d)
+    valid = torch.arange(span, device=cuda_device)[None] <= torch.tensor(
+        [[900], [5], [-1], [512]], device=cuda_device)
+    args = _paged_inputs(gen, dtype, 4, h, g, d, 16, 64, [1000, 3, 600, 64])
+    for _ in range(2):
+        first = kdec.decode_attention_cuda(q, ck, cv, valid, d ** -0.5)
+        second = kdec.decode_attention_cuda(q, ck, cv, valid, d ** -0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        assert not _scratch_counters(q).any()
+        paged = [kpaged.paged_decode_attention_cuda(*args, d ** -0.5) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(paged[0], paged[1])
+        assert not _scratch_counters(q).any()
+    _assert_close(first, kdec.decode_attention_plain(q, ck, cv, valid, d ** -0.5), dtype)
+    _assert_close(paged[0], kpaged.paged_decode_attention_plain(*args, d ** -0.5), dtype)
+
+
+@pytest.mark.cuda
+def test_decode_scratch_large_small_large(cuda_device):
+    """A large call, a small one, then a large one again, on the scratch the
+    wrappers keep (grown by the first): each equals its plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    dtype = torch.bfloat16
+    for b, h, g, d, span in ((16, 64, 8, 128, 2048), (1, 4, 2, 32, 64), (16, 64, 8, 128, 2048),
+                             (2, 32, 32, 112, 700)):
+        q, ck, cv = _rand(gen, dtype, b, 1, h, d), _rand(gen, dtype, b, span, g, d), \
+            _rand(gen, dtype, b, span, g, d)
+        pos = torch.randint(0, span, (b,), generator=gen, device=cuda_device)
+        valid = torch.arange(span, device=cuda_device)[None] <= pos[:, None]
+        _assert_close(kdec.decode_attention_cuda(q, ck, cv, valid, d ** -0.5),
+                      kdec.decode_attention_plain(q, ck, cv, valid, d ** -0.5), dtype)
+        args = _paged_inputs(gen, dtype, b, h, g, d, 16, span // 16, pos.tolist())
+        _assert_close(kpaged.paged_decode_attention_cuda(*args, d ** -0.5),
+                      kpaged.paged_decode_attention_plain(*args, d ** -0.5), dtype)
+        torch.cuda.synchronize()
+        assert not _scratch_counters(q).any()
 
 
 @pytest.mark.cuda

@@ -87,7 +87,9 @@ def test_flash_plain_bf16_matches_oracle():
 
 
 @pytest.mark.parametrize("b,h,g,d,span", [(2, 4, 2, 32, 96), (1, 8, 8, 64, 64),
-                                          (3, 32, 8, 128, 70)])
+                                          (3, 32, 8, 128, 70),
+                                          (2, 32, 32, 112, 70),    # zamba2's shared block
+                                          (2, 16, 4, 112, 50)])    # head_dim 112, GQA
 def test_decode_plain_matches_jax(b, h, g, d, span):
     q = _normal(0, (b, 1, h, d))
     ck, cv = _normal(1, (b, span, g, d)), _normal(2, (b, span, g, d))
@@ -163,6 +165,8 @@ def _gather_ref(q, kp, vp, tables, pos, scale):
     (4, 8, 2, 32, 4, 5, [19, 3, 12, 8]),       # pos at span - 1, boundaries, sink tails
     (2, 32, 8, 128, 16, 8, [127, 70]),         # granite geometry, H/G 4
     (2, 8, 2, 32, 8, 2, [40, 5]),              # pos past the span: saturates
+    (2, 32, 32, 112, 16, 4, [50, 9]),          # zamba2's shared block, head_dim 112
+    (3, 16, 4, 112, 8, 5, [33, 0, 12]),        # head_dim 112, GQA, pos 0
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_plain_matches_jax(b, h, g, d, bs, max_blocks, pos, dtype):
@@ -186,12 +190,16 @@ def test_paged_plain_matches_jax(b, h, g, d, bs, max_blocks, pos, dtype):
 
 
 @pytest.mark.parametrize("b,g,s,sms", [(8, 8, 1024, 132), (1, 1, 64, 132), (2, 8, 4096, 132),
-                                       (8, 8, 1000, 132), (64, 8, 128, 132), (1, 2, 65, 4)])
+                                       (8, 8, 1000, 132), (64, 8, 128, 132), (1, 2, 65, 4),
+                                       (64, 8, 32768, 132)])    # slices at their longest
 def test_decode_split_plan_covers_span(b, g, s, sms):
     split_len, n_split = kdec.split_plan(b, g, s, sms)
-    assert split_len % kdec.TILE == 0
+    assert split_len % kdec.TILE == 0 and split_len <= kdec.MAX_SPLIT
     assert n_split * split_len >= s > (n_split - 1) * split_len     # no empty slice
-    assert n_split == 1 or b * g * n_split <= 2 * sms + b * g        # about two CTAs per SM
+    # at most one CTA an SM, unless slices would pass MAX_SPLIT
+    assert n_split == 1 or b * g * n_split <= sms or split_len > kdec.MAX_SPLIT // 2
+    # the span is cut where the pairs leave at least half the SMs idle
+    assert n_split > 1 or 2 * b * g > sms or s <= kdec.TILE
 
 
 def test_ops_route_cpu_tensors_to_plain_versions():
