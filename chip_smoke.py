@@ -14,10 +14,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
    lane with no valid position, the paged kernel over 16 lanes' block
    tables with shared blocks, both decode kernels at head_dim 112 in bf16
    and fp32, the rwkv6 and SSD kernels also against their token
-   recurrences under strong decay), and time kernel, plain version and a
-   library call (and the rwkv6 and SSD backwards); flash, RMSNorm and the
-   two decode kernels also by their kernels' device time alone
-   (torch.profiler), beside the library call's;
+   recurrences under strong decay, each of their gates' margin printed),
+   and time kernel, plain version and a library call (and the rwkv6 and
+   SSD backwards); every kernel also by its device time alone
+   (torch.profiler), beside the library call's, and SSD and WKV6 against
+   their bounds on tensor cores and as fp32 vector work;
 4. reduced granite in fp32 with the same weights on the card (kernels) and
    on the CPU (plain versions): logits and greedy ServeEngine tokens agree,
    over dense lanes and over the paged pool with the prefix cache (a run
@@ -66,9 +67,9 @@ line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the checkout beside it, the script exits nonzero and prints no
 result.  ``--phases`` runs a subset (default: all); ``--phases
 build,baseline --baseline DIR[,DIR...]`` (never run by default) builds the
-flash, RMSNorm, dense decode and paged decode kernels of other checkouts,
-e.g. the parent commit unpacked with ``git archive``, and times them in
-turns with this one's.
+flash, RMSNorm, dense decode, paged decode, SSD and WKV6 kernels of other
+checkouts, e.g. the parent commit unpacked with ``git archive``, and times
+them in turns with this one's.
 """
 
 from __future__ import annotations
@@ -121,9 +122,9 @@ RWKV_TRAIN_PATH = ("rwkv6_scan", "rmsnorm")
 DENSE_TRAIN_PATH = ("flash_attention", "rmsnorm")
 HYBRID_TRAIN_PATH = ("mamba2_ssd", "flash_attention", "rmsnorm")
 SERVING_ONLY = ("decode_attention", "paged_decode_attention")
-# rwkv6 and SSD kernels vs plain version or recurrence in fp32: |err| <=
-# SCAN_F32_TOL * max|ref|, the reference kernels' own tolerance
-# (tests/test_kernels.py)
+# rwkv6 and SSD kernels vs plain version or recurrence in fp32, and the SSD's
+# fp32 final state in a bf16 run: |err| <= SCAN_F32_TOL * max|ref|, the
+# reference kernels' own tolerance (tests/test_kernels.py)
 SCAN_F32_TOL = 3e-5
 # card vs CPU training parity, fp32: loss relative, each gradient leaf
 # |err| <= GRAD_TOL * max(1, max|g|), the losses of 3 AdamW steps relative
@@ -217,16 +218,6 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float,
     if (err > limit).any():
         raise AssertionError(f"{name}: max |err| {err.max().item():.3e} beyond tolerance {tol}")
     return err.max().item()
-
-
-def check_scan_f32(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
-    """fp32 scan output within SCAN_F32_TOL x max|ref|; returns max|err| / max|ref|."""
-    worst = (got - ref).abs().max().item()
-    if got.shape != ref.shape or not torch.isfinite(got).all() or \
-            worst > SCAN_F32_TOL * ref.abs().max().item():
-        raise AssertionError(f"{name}: max |err| {worst:.3e} beyond {SCAN_F32_TOL} x "
-                             f"max|ref| {ref.abs().max().item():.3e}, or non-finite")
-    return worst / ref.abs().max().item()
 
 
 # ---------------------------------------------------------------------------
@@ -435,54 +426,89 @@ def ssd_flops(b: int, t: int, h: int, p: int, n: int, c: int = 64) -> float:
     return float(b * h * -(-t // c) * per_chunk)
 
 
+SSD_SHAPE = (8, 512, 112, 64, 64)      # zamba2-7b's training step: B, T, H, P, N
+SSD_BYTES = (2 * 8 * 512 * 112 * 64 * 2 + 2 * 8 * 512 * 64 * 2 + 8 * 512 * 112 * 4
+             + 2 * 112 * 4 + 8 * 112 * 64 * 64 * 4)   # x, y; B, C; dt; A, D; fp32 state
+
+
+def ssd_inputs(gen: torch.Generator, dtype, t: int = SSD_SHAPE[1], decay: str = "model"):
+    """x, dt, A, B, C, D at zamba2-7b's training widths, x, B and C cut from
+    one (B, T, 7296) conv output as the model cuts them (strided views).
+    ``decay``: "model" (dt = softplus(N(0,1) + dt_bias), A = -linspace(1,
+    16), as the model's init draws them), "reference" (tests/test_kernels.py:
+    dt = softplus(N(0,1)), A = -exp(0.3 N)) or "strong" (dt uniform in [0,
+    5], A = -16)."""
+    b, _, h, p, n = SSD_SHAPE
+    d_in = h * p
+    xbc = _rand((b, t, d_in + 2 * n), dtype, gen)
+    x = xbc[..., :d_in].reshape(b, t, h, p)
+    bm, cm = xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
+    z = _rand((b, t, h), torch.float32, gen)
+    if decay == "model":
+        dt = F.softplus(z + float(np.log(np.expm1(0.01))))
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    elif decay == "reference":
+        dt = F.softplus(z)
+        a = -torch.exp(0.3 * _rand((h,), torch.float32, gen))
+    else:
+        dt = 5.0 * torch.rand((b, t, h), generator=gen, device="cuda")
+        a = torch.full((h,), -16.0, device="cuda")
+    return x, dt, a, bm, cm, 1.0 + 0.1 * _rand((h,), torch.float32, gen)
+
+
+def gate(got: torch.Tensor, ref: torch.Tensor, tol: float, elementwise: bool) -> float:
+    """A gate's margin, max |err| / limit (<= 1 passes): ``elementwise``
+    tol x max(1, |ref|) per element (the bf16 gates), else tol x max|ref|
+    (the scans' 3e-5 gates)."""
+    err = (got.float() - ref.float()).abs()
+    if elementwise:
+        return (err / (tol * ref.float().abs().clamp_min(1.0))).max().item()
+    return err.max().item() / (tol * ref.float().abs().max().item())
+
+
+def check_gates(name: str, margins: dict) -> str:
+    """Raise if any margin exceeds 1; the margins as one line of text."""
+    bad = {k: v for k, v in margins.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"{name}: gates exceeded (error / limit): {bad}")
+    return ", ".join(f"{k} {v:.3f}" for k, v in margins.items())
+
+
 def ssd_kernel(results: dict, gen: torch.Generator) -> None:
-    """The SSD kernel at zamba2-7b's training shape (B 8, T 512, H 112, P 64,
-    N 64), x, B and C cut from one (B, T, 7296) conv output as the model
-    cuts them (strided views), dt and A as the model's init draws them
-    (dt = softplus(N(0,1) + dt_bias), A = -linspace(1, 16)): bf16 against
-    the plain chunked version; fp32 against the token recurrence at the
-    reference's decay (tests/test_kernels.py: dt = softplus(N(0,1)),
-    A = -exp(0.3 N)) and under strong decay (dt uniform in [0, 5], A = -16)
-    at a ragged T of 500."""
+    """The SSD kernel at zamba2-7b's training shape (``ssd_inputs``): bf16
+    (the tensor-core body) against the plain chunked version, y within
+    BF16_TOL x max(1, |ref|) and the fp32 final state within SCAN_F32_TOL x
+    max|ref|, and under strong decay at a ragged T of 500 against the token
+    recurrence of the same bf16 values; fp32 (the scalar body) against the
+    token recurrence at the reference's decay and under strong decay.  Each
+    gate's margin (error / limit) is printed."""
     from repro_torch.kernels import mamba2_ssd as kssd
     from repro_torch.kernels import ops
     from repro_torch.models.ssm import mamba2_scan_plain
-    b, t, h, p, n = 8, 512, 112, 64, 64
-    d_in = h * p
-
-    def inputs(dtype, t=t, decay="model"):
-        xbc = _rand((b, t, d_in + 2 * n), dtype, gen)
-        x = xbc[..., :d_in].reshape(b, t, h, p)
-        bm, cm = xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
-        z = _rand((b, t, h), torch.float32, gen)
-        if decay == "model":
-            dt = F.softplus(z + float(np.log(np.expm1(0.01))))
-            a = -torch.linspace(1.0, 16.0, h, device="cuda")
-        elif decay == "reference":
-            dt = F.softplus(z)
-            a = -torch.exp(0.3 * _rand((h,), torch.float32, gen))
-        else:
-            dt = 5.0 * torch.rand((b, t, h), generator=gen, device="cuda")
-            a = torch.full((h,), -16.0, device="cuda")
-        return x, dt, a, bm, cm, 1.0 + 0.1 * _rand((h,), torch.float32, gen)
-
-    nbytes = (2 * b * t * h * p * 2 + 2 * b * t * n * 2 + b * t * h * 4 + 2 * h * 4
-              + b * h * p * n * 4)
-    sets = [inputs(torch.bfloat16) for _ in range(n_sets(nbytes))]
+    b, t, h, p, n = SSD_SHAPE
+    sets = [ssd_inputs(gen, torch.bfloat16) for _ in range(n_sets(SSD_BYTES))]
     args = sets[0]
     y, s = kssd.mamba2_ssd_cuda(*args)
     ry, rs = kssd.mamba2_ssd_chunked_plain(*args)
     err = check_close("ssd bf16 y", y, ry, BF16_TOL, relative=True)
-    check_scan_f32("ssd bf16 final state", s, rs)
-    rel = {}
+    m16 = {"bf16 y": gate(y, ry, BF16_TOL, True), "bf16 state": gate(s, rs, SCAN_F32_TOL, False)}
+    strong = ssd_inputs(gen, torch.bfloat16, t=500, decay="strong")
+    y, s = kssd.mamba2_ssd_cuda(*strong)
+    qy, qs = mamba2_scan_plain(*(a.float() for a in strong))
+    m16["bf16 strong T=500 y vs recurrence"] = gate(y, qy, BF16_TOL, True)
+    m16["bf16 strong T=500 state vs recurrence"] = gate(s, qs, SCAN_F32_TOL, False)
+    del strong, y, s, ry, rs, qy, qs
+    m32 = {}
     for what, tt in (("reference", t), ("strong", 500)):
-        a32 = inputs(torch.float32, t=tt, decay=what)
+        a32 = ssd_inputs(gen, torch.float32, t=tt, decay=what)
         y, s = kssd.mamba2_ssd_cuda(*a32)
         ry, rs = mamba2_scan_plain(*a32)
-        rel[what] = max(check_scan_f32(f"ssd f32 {what} decay T={tt} y vs recurrence", y, ry),
-                        check_scan_f32(f"ssd f32 {what} decay T={tt} state vs recurrence", s, rs))
+        m32[f"f32 {what} T={tt} y vs recurrence"] = gate(y, ry, SCAN_F32_TOL, False)
+        m32[f"f32 {what} T={tt} state vs recurrence"] = gate(s, rs, SCAN_F32_TOL, False)
         del a32, y, s, ry, rs
-    ms = sync_time_ms([lambda a=a: kssd.mamba2_ssd_cuda(*a) for a in sets])
+    margins = check_gates("ssd", {**m16, **m32})
+    kern = [lambda a=a: kssd.mamba2_ssd_cuda(*a) for a in sets]
+    ms, dev_ms = sync_time_ms(kern, iters=FAST_ITERS), device_ms(kern)
     plain_ms = sync_time_ms([lambda a=a: kssd.mamba2_ssd_chunked_plain(*a) for a in sets], iters=5)
     # the autograd backward (autograd through the plain version, recomputed)
     # of ops.mamba2_ssd at the training step's shape, bf16 like the model
@@ -496,20 +522,21 @@ def ssd_kernel(results: dict, gen: torch.Generator) -> None:
                           iters=5, warmup=1)
     del out, grads, xs
     flops = ssd_flops(b, t, h, p, n)
-    b_ms, b_by = bound(flops, PEAK_F32_FLOPS, nbytes)
+    b_ms, b_by = bound(flops, PEAK_BF16_FLOPS, SSD_BYTES)
+    f32_ms, f32_by = bound(flops, PEAK_F32_FLOPS, SSD_BYTES)
     log(f"[kernels] ssd B={b} T={t} H={h} P={p} N={n} bf16 (strided x, B, C): max_abs_err "
-        f"{err:.3e}; fp32 max|err|/max|ref| vs the recurrence {rel['reference']:.2e} at the "
-        f"reference's decay, {rel['strong']:.2e} under strong decay at T=500 (tol "
-        f"{SCAN_F32_TOL}); kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  backward (autograd "
-        f"through the plain version) {bwd_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        f"{err:.3e}; gate margins (error / limit; bf16: the tensor-core body, f32: the scalar "
+        f"body): {margins}; kernel {ms:.4f} ms (device {dev_ms:.4f})  plain {plain_ms:.4f} ms  "
+        f"backward (autograd through the plain version) {bwd_ms:.4f} ms  bound on tensor cores "
+        f"{b_ms:.4f} ms ({b_by}), as fp32 vector work {f32_ms:.4f} ms ({f32_by}; "
+        f"{flops / 1e9:.2f} GFLOP, {SSD_BYTES / 1e6:.1f} MB)")
     results["mamba2_ssd"] = dict(
         name="mamba2_ssd", route="cuda", source="src/repro_torch/kernels/csrc/mamba2_ssd.cu",
         replaces="src/repro/kernels/mamba2_ssd.py:71", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        library="none: no single PyTorch call computes the SSD scan",
-        backward_ms=bwd_ms, shape=f"B={b} T={t} H={h} P={p} N={n} bf16, dt and A as the "
-                                  f"model's init")
+        library="none: no single PyTorch call computes the SSD scan", device_ms=dev_ms,
+        bound_fp32_vector_ms=f32_ms, backward_ms=bwd_ms,
+        shape=f"B={b} T={t} H={h} P={p} N={n} bf16, dt and A as the model's init")
 
 
 def paged_tables(rng: np.random.Generator, pos: np.ndarray, bs: int, max_blocks: int,
@@ -669,8 +696,9 @@ def decode_d112(gen: torch.Generator) -> None:
 
 
 def rwkv6_flops(b: int, t: int, h: int, dk: int, c: int = 16) -> float:
-    """fp32 operations of the chunked WKV6 kernel (chunk ``c``), counting a
-    multiply-add as 2 and leaving out the exponentials: per chunk and
+    """Operations of the chunked WKV6 recurrence at chunk ``c`` (16, the
+    fewest of the port's chunkings; the bf16 body's 64 forms more pairs),
+    counting a multiply-add as 2 and leaving out the exponentials: per chunk and
     (batch, head) the inter term r e^{La} S (2cK^2), the scores of the
     c(c-1)/2 pairs s < t (3K each) and the bonus diagonal (3cK), P v over
     the c(c+1)/2 pairs (2K each), the decay weights (2cK) and the state
@@ -680,38 +708,57 @@ def rwkv6_flops(b: int, t: int, h: int, dk: int, c: int = 16) -> float:
     return float(b * h * -(-t // c) * per_chunk)
 
 
+RWKV_SHAPE = (8, 512, 32, 64)            # rwkv6-1.6b's training step: B, T, H, K
+RWKV_BYTES = 4 * 8 * 512 * 32 * 64 * 2 + 8 * 512 * 32 * 64 * 4 + 32 * 64 * 4  # r k v out; lw; u
+
+
+def rwkv6_inputs(gen: torch.Generator, dtype, lw=None):
+    """r, k, v, log-decay, u at rwkv6-1.6b's training shape; the log-decay
+    drawn like the model's at init (-exp(w0 + LoRA), w0 = -4, the LoRA term
+    ~N(0, 0.8)) unless given."""
+    shape = RWKV_SHAPE
+    r, k, v = (_rand(shape, dtype, gen) for _ in range(3))
+    if lw is None:
+        lw = -torch.exp(-4.0 + 0.8 * _rand(shape, torch.float32, gen))
+    return r, k, v, lw, 0.3 * _rand(shape[2:], torch.float32, gen)
+
+
 def rwkv6_kernel(results: dict, gen: torch.Generator) -> None:
-    """The rwkv6 kernel at rwkv6-1.6b's training shape (B 8, T 512, H 32,
-    K 64), log-decay drawn like the model's at init (-exp(w0 + LoRA) with w0
-    = -4 and the LoRA term ~N(0, 0.8)): bf16 and fp32 against the plain
-    chunked version, and fp32 under strong decay (per-step log-decay down
-    to -5) against the token recurrence."""
+    """The rwkv6 kernel at rwkv6-1.6b's training shape (``rwkv6_inputs``):
+    bf16 (the tensor-core body) against the plain chunked version and, under
+    strong decay (per-step log-decay down to -5), against the token
+    recurrence of the same bf16 values, within BF16_TOL x max(1, |ref|);
+    fp32 (the scalar body) against the plain version and under strong decay
+    against the recurrence, within SCAN_F32_TOL x max|ref|.  Each gate's
+    margin (error / limit) is printed."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as krwkv
     from repro_torch.models.rwkv import rwkv6_scan_plain
     bf = torch.bfloat16
-    b, t, h, dk = 8, 512, 32, 64
-
-    def inputs(dtype, lw=None):
-        r, k, v = (_rand((b, t, h, dk), dtype, gen) for _ in range(3))
-        if lw is None:
-            lw = -torch.exp(-4.0 + 0.8 * _rand((b, t, h, dk), torch.float32, gen))
-        return r, k, v, lw, 0.3 * _rand((h, dk), torch.float32, gen)
-
-    nbytes = 4 * b * t * h * dk * 2 + b * t * h * dk * 4 + h * dk * 4
-    sets = [inputs(bf) for _ in range(n_sets(nbytes))]
+    b, t, h, dk = RWKV_SHAPE
+    sets = [rwkv6_inputs(gen, bf) for _ in range(n_sets(RWKV_BYTES))]
     args = sets[0]
-    err = check_close("rwkv6 bf16", krwkv.rwkv6_cuda(*args), krwkv.rwkv6_chunked_plain(*args),
-                      BF16_TOL, relative=True)
+    got, ref = krwkv.rwkv6_cuda(*args), krwkv.rwkv6_chunked_plain(*args)
+    err = check_close("rwkv6 bf16", got, ref, BF16_TOL, relative=True)
+    margins = {"bf16 out": gate(got, ref, BF16_TOL, True)}
 
+    def strong(dtype):
+        return rwkv6_inputs(gen, dtype, lw=-5.0 * torch.rand(RWKV_SHAPE, generator=gen,
+                                                             device="cuda"))
+    sb = strong(bf)
+    rec, _ = rwkv6_scan_plain(*(a.float() for a in sb[:3]), torch.exp(sb[3]), sb[4])
+    margins["bf16 strong decay vs recurrence"] = gate(krwkv.rwkv6_cuda(*sb), rec, BF16_TOL, True)
     a32 = [a.float() for a in args]
-    rel32 = check_scan_f32("rwkv6 f32", krwkv.rwkv6_cuda(*a32), krwkv.rwkv6_chunked_plain(*a32))
-    strong = inputs(torch.float32, lw=-5.0 * torch.rand((b, t, h, dk), generator=gen,
-                                                          device="cuda"))
-    rec, _ = rwkv6_scan_plain(*strong[:3], torch.exp(strong[3]), strong[4])
-    rel_strong = check_scan_f32("rwkv6 f32 strong decay vs recurrence", krwkv.rwkv6_cuda(*strong),
-                           rec)
-    ms = sync_time_ms([lambda a=a: krwkv.rwkv6_cuda(*a) for a in sets])
+    margins["f32 out"] = gate(krwkv.rwkv6_cuda(*a32), krwkv.rwkv6_chunked_plain(*a32),
+                              SCAN_F32_TOL, False)
+    s32 = strong(torch.float32)
+    rec, _ = rwkv6_scan_plain(*s32[:3], torch.exp(s32[3]), s32[4])
+    margins["f32 strong decay vs recurrence"] = gate(krwkv.rwkv6_cuda(*s32), rec, SCAN_F32_TOL,
+                                                     False)
+    del sb, a32, s32, rec, got, ref
+    margins = check_gates("rwkv6", margins)
+    kern = [lambda a=a: krwkv.rwkv6_cuda(*a) for a in sets]
+    ms, dev_ms = sync_time_ms(kern, iters=FAST_ITERS), device_ms(kern)
     plain_ms = sync_time_ms([lambda a=a: krwkv.rwkv6_chunked_plain(*a) for a in sets], iters=5)
     # the autograd backward (autograd through the plain version, recomputed)
     # of ops.rwkv6_scan at the training step's shape, bf16 like the model
@@ -725,18 +772,22 @@ def rwkv6_kernel(results: dict, gen: torch.Generator) -> None:
     bwd_ms = sync_time_ms([lambda: torch.autograd.grad(out, (r, k, v, w, u), g,
                                                        retain_graph=True)], iters=5, warmup=1)
     del out, grads
-    b_ms, b_by = bound(rwkv6_flops(b, t, h, dk), PEAK_F32_FLOPS, nbytes)
-    log(f"[kernels] rwkv6 B={b} T={t} H={h} K={dk} bf16: max_abs_err {err:.3e}; fp32 "
-        f"max|err|/max|ref| {rel32:.2e}, strong decay vs the recurrence {rel_strong:.2e} "
-        f"(tol {SCAN_F32_TOL}); kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  backward "
-        f"(autograd through the plain version) {bwd_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
-        f"{rwkv6_flops(b, t, h, dk) / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    flops = rwkv6_flops(b, t, h, dk)
+    b_ms, b_by = bound(flops, PEAK_BF16_FLOPS, RWKV_BYTES)
+    f32_ms, f32_by = bound(flops, PEAK_F32_FLOPS, RWKV_BYTES)
+    log(f"[kernels] rwkv6 B={b} T={t} H={h} K={dk} bf16: max_abs_err {err:.3e}; gate margins "
+        f"(error / limit; bf16: the tensor-core body, f32: the scalar body): {margins}; kernel "
+        f"{ms:.4f} ms (device {dev_ms:.4f})  plain {plain_ms:.4f} ms  backward (autograd "
+        f"through the plain version) {bwd_ms:.4f} ms  bound on tensor cores {b_ms:.4f} ms "
+        f"({b_by}), as fp32 vector work {f32_ms:.4f} ms ({f32_by}; {flops / 1e9:.2f} GFLOP, "
+        f"{RWKV_BYTES / 1e6:.1f} MB)")
     results["rwkv6_scan"] = dict(
         name="rwkv6_scan", route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:71", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        library="none: no single PyTorch call computes the WKV6 recurrence",
-        backward_ms=bwd_ms, shape=f"B={b} T={t} H={h} K={dk} bf16, log-decay -exp(-4 + 0.8 N)")
+        library="none: no single PyTorch call computes the WKV6 recurrence", device_ms=dev_ms,
+        bound_fp32_vector_ms=f32_ms, backward_ms=bwd_ms,
+        shape=f"B={b} T={t} H={h} K={dk} bf16, log-decay -exp(-4 + 0.8 N)")
 
 
 # ---------------------------------------------------------------------------
@@ -1355,6 +1406,7 @@ def log_steps(tag: str, out: dict, events: list, warmup: int, batch: int, seq: i
         f"{what} x {tokens} tokens per step / step time / 989 TFLOP/s bf16 dense; remat's "
         f"recompute not counted as useful work); peak device memory {peak / 2**30:.2f} GiB; "
         f"run wall {wall:.1f} s of which steps {sum(r['step_s'] for r in out['history']):.1f} s")
+    log(f"[{tag}] per-step training losses: {', '.join(f'{x:.4f}' for x in losses)}")
 
 
 def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
@@ -1634,7 +1686,9 @@ def phase_lr_probe(n_steps: int = 20) -> None:
 BASELINE_LIBS = (("flash_attention", "flash_attention_fwd", "flash_attention"),
                  ("rmsnorm", "rmsnorm_fwd", "rmsnorm"),
                  ("decode_attention", "decode_attention_fwd", "decode_attention"),
-                 ("paged_attention", "paged_decode_attention_fwd", "paged_attention"))
+                 ("paged_attention", "paged_decode_attention_fwd", "paged_attention"),
+                 ("mamba2_ssd", "mamba2_ssd_fwd", "mamba2_ssd"),
+                 ("rwkv6_scan", "rwkv6_fwd", "rwkv6_scan"))
 
 
 def _library_fns(checkout: Path, out: Path) -> dict:
@@ -1673,9 +1727,9 @@ def _library_fns(checkout: Path, out: Path) -> dict:
 
 def phase_baseline(baselines: list) -> None:
     """Opt-in (``--phases build,baseline --baseline DIR[,DIR...]``): the flash,
-    RMSNorm, dense decode and paged decode kernels of other checkouts (e.g.
-    the parent commit unpacked with ``git archive``), built from their
-    sources with this checkout's flags, timed in turns with this checkout's
+    RMSNorm, SSD, WKV6, dense decode and paged decode kernels of other
+    checkouts (e.g. the parent commit unpacked with ``git archive``), built
+    from their sources with this checkout's flags, timed in turns with this checkout's
     kernels on the same inputs and card: baseline, current, current,
     baseline.  Every library is called through its C entry point with
     preallocated outputs and scratch, so the times are the kernels' and their
@@ -1686,8 +1740,10 @@ def phase_baseline(baselines: list) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba2_ssd as kssd
     from repro_torch.kernels import paged_attention as kpaged
     from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.kernels import rwkv6_scan as krwkv
     libs = {"current": _library_fns(ROOT, ROOT / "build" / "baseline" / "current")}
     for i, base in enumerate(baselines):
         libs[str(base)] = _library_fns(base.resolve(), ROOT / "build" / "baseline" / str(i))
@@ -1739,6 +1795,44 @@ def phase_baseline(baselines: list) -> None:
                         BF16_TOL, relative=True)
             calls[name] = [lambda a=a, o=o, call=call: call(a, o) for a, o in zip(sets, outs)]
         turns(f"rmsnorm ({rows},{d}) bf16", calls)
+
+    # the SSD and WKV6 forwards at the training shapes, bf16, with each
+    # library's margin against the plain version (error / limit)
+    sets = [ssd_inputs(gen, torch.bfloat16) for _ in range(n_sets(SSD_BYTES))]
+    bsz, t, h, p, n = SSD_SHAPE
+    outs = [(torch.empty((bsz, t, h, p), dtype=torch.bfloat16, device="cuda"),
+             torch.empty((bsz, h, p, n), dtype=torch.float32, device="cuda")) for _ in sets]
+    ry, rs = kssd.mamba2_ssd_chunked_plain(*sets[0])
+    calls = {}
+    for name, fns in libs.items():
+        def call(a, o, fn=fns["mamba2_ssd"], name=name):
+            x, dt, aa, bm, cm, dd = a
+            _build.check(fn(x.data_ptr(), dt.data_ptr(), aa.data_ptr(), bm.data_ptr(),
+                            cm.data_ptr(), dd.data_ptr(), o[0].data_ptr(), o[1].data_ptr(),
+                            x.stride(0), x.stride(1), bm.stride(0), bm.stride(1), cm.stride(0),
+                            cm.stride(1), bsz, t, h, p, n, _build.DT_BF16, stream), name)
+        call(sets[0], outs[0])
+        log(f"[baseline] {name} ssd margins: " + check_gates(f"{name} ssd", {
+            "bf16 y": gate(outs[0][0], ry, BF16_TOL, True),
+            "bf16 state": gate(outs[0][1], rs, SCAN_F32_TOL, False)}))
+        calls[name] = [lambda a=a, o=o, call=call: call(a, o) for a, o in zip(sets, outs)]
+    turns(f"ssd B={bsz} T={t} H={h} P={p} N={n} bf16", calls)
+    del sets, outs, ry, rs
+    sets = [rwkv6_inputs(gen, torch.bfloat16) for _ in range(n_sets(RWKV_BYTES))]
+    outs = [torch.empty_like(a[0]) for a in sets]
+    ref = krwkv.rwkv6_chunked_plain(*sets[0])
+    bsz, t, h, dk = RWKV_SHAPE
+    calls = {}
+    for name, fns in libs.items():
+        def call(a, o, fn=fns["rwkv6_scan"], name=name):
+            _build.check(fn(*(x.data_ptr() for x in a), o.data_ptr(), bsz, t, h, dk,
+                            _build.DT_BF16, stream), name)
+        call(sets[0], outs[0])
+        log(f"[baseline] {name} rwkv6 margin: " + check_gates(
+            f"{name} rwkv6", {"bf16 out": gate(outs[0], ref, BF16_TOL, True)}))
+        calls[name] = [lambda a=a, o=o, call=call: call(a, o) for a, o in zip(sets, outs)]
+    turns(f"rwkv6 B={bsz} T={t} H={h} K={dk} bf16", calls)
+    del sets, outs, ref
 
     # the decode kernels at phase 3's shapes: dense B=8 S=1024 (random lane
     # lengths) and paged B=16 bs=16 over 64 blocks (lanes of 16-1023 positions)
@@ -1810,8 +1904,8 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES + OPT_IN}; {OPT_IN} run only "
                          f"when named")
     ap.add_argument("--baseline", default="",
-                    help="comma-separated checkouts whose flash, RMSNorm, decode and paged "
-                         "kernels the baseline phase times beside this one's")
+                    help="comma-separated checkouts whose flash, RMSNorm, decode, paged, SSD "
+                         "and WKV6 kernels the baseline phase times beside this one's")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():

@@ -57,6 +57,16 @@
 #pragma once
 
 #include "common.cuh"
+#include "hopper.cuh"
+
+using hopper::LOG2E;
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::ex2;
+using hopper::ldmatrix_x4;
+using hopper::ldmatrix_x4_trans;
+using hopper::pack_bf16;
 
 constexpr int DEC_THREADS = 256;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
@@ -65,13 +75,6 @@ constexpr int MAX_NREP = 8;
 constexpr int DEC_CHUNK = 16;      // positions a warp loads and computes at once
 constexpr int DEC_STAGES = 2;      // chunks in flight per warp
 constexpr int DEC_MAX_SPLIT = 32 * DEC_CHUNK * DEC_WARPS;   // a warp walks at most 32 chunks
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---- the merge, shared by both bodies -----------------------------------------
 
@@ -134,7 +137,7 @@ __device__ __forceinline__ void finish_slice(const Layout& lay, const T* __restr
         const float a_sp = __ldcg(&part_acc[i * D + dd]);
         if (m_sp == -INFINITY) continue;                  // a slice with no live position
         const float m_new = fmaxf(mx, m_sp);
-        const float c = fast_exp2(mx - m_new), w = fast_exp2(m_sp - m_new);   // c = 0 at first
+        const float c = ex2(mx - m_new), w = ex2(m_sp - m_new);   // c = 0 at first
         l = l * c + w * l_sp;
         a = a * c + w * a_sp;
         mx = m_new;
@@ -156,17 +159,6 @@ __device__ __forceinline__ void finish_slice(const Layout& lay, const T* __restr
 
 // ---- the bf16 body: per-warp cp.async ring, mma.sync -------------------------
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // d (16 x 8, fp32) += A (16 x 16) . B (16 x 8), bf16; A's rows 8-15 are zero
 // (a1 = a3 = 0): only the query heads' rows 0-7 exist
 __device__ __forceinline__ void mma_rows8(float (&d)[4], uint32_t a0, uint32_t a2, uint32_t b0,
@@ -176,23 +168,6 @@ __device__ __forceinline__ void mma_rows8(float (&d)[4], uint32_t a0, uint32_t a
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool read) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(read ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // the lowest chunk index left in `todo`, taken out of it; -1 when it is empty
@@ -337,11 +312,11 @@ __global__ void __launch_bounds__(DEC_THREADS)
     mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
     mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
     const float m_new = fmaxf(m_run, mc);          // finite: the chunk has a live position
-    const float corr = fast_exp2(m_run - m_new);   // 0 when m_run = -inf
+    const float corr = ex2(m_run - m_new);   // 0 when m_run = -inf
     m_run = m_new;
     float pr[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) pr[j] = fast_exp2(x[j] - m_new);
+    for (int j = 0; j < 4; ++j) pr[j] = ex2(x[j] - m_new);
     l_run = l_run * corr + (pr[0] + pr[1]) + (pr[2] + pr[3]);   // this lane's columns
     const uint32_t pa0 = pack_bf16(pr[0], pr[1]), pa2 = pack_bf16(pr[2], pr[3]);
     // acc (heads x D) = acc * corr + P V, V's fragments by ldmatrix.trans
@@ -397,7 +372,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
     if (mx != -INFINITY) {
 #pragma unroll
       for (int w = 0; w < DEC_WARPS; ++w) {
-        const float wt = fast_exp2(w_m[w * MAX_NREP + r] - mx);
+        const float wt = ex2(w_m[w * MAX_NREP + r] - mx);
         a += wt * w_acc[(w * MAX_NREP + r) * D + dd];
         l += wt * w_l[w * MAX_NREP + r];
       }

@@ -192,19 +192,8 @@ __global__ void __launch_bounds__(FA_THREADS)
 // bf16 tensor-core body
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);            // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::mma_bf16;
+using hopper::pack_bf16;
 
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
@@ -444,13 +433,7 @@ struct Ring {
   }
 };
 
-// 2^x on the SFU, flushing denormals (exp2f adds range fix-ups around it);
-// 2^-inf = 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using hopper::ex2;
 
 // live keys of a query at position tq: [lo, hi)
 __device__ __forceinline__ void key_range(int tq, int T_k, int causal, int chunk, int& lo,

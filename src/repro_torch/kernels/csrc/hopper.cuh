@@ -2,10 +2,13 @@
 // stores, wgmma descriptors and products, register hand-off between
 // warpgroups, and the host-side tensor-map encoder.  Shared by the kernels
 // built the Hopper way: a TMA ring guarded by mbarriers, a producer
-// warpgroup, consumer warpgroups on wgmma.
+// warpgroup, consumer warpgroups on wgmma.  Also the warp-level mma.sync
+// product and its fragment loads, shared by the decode body, flash's
+// mma.sync body and the chunked scans (WKV6, SSD).
 #pragma once
 
 #include <cuda.h>          // CUtensorMap and its enums only: no libcuda symbol is linked
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -181,6 +184,84 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       "}\n"
       : HOPPER_ACC64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- 2^x on the SFU ------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x, one MUFU.EX2 flushing denormals (exp2f and __expf add range fix-ups
+// around it); 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- cp.async: 16 bytes a thread, global to shared ----------------------------
+
+// read == false zero-fills the 16 bytes and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool read) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(read ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- mma.sync: warp-level m16n8k16, bf16 in, fp32 out ------------------------
+//
+// Fragments (g = lane / 4, c = lane % 4): A (16 x 16, row) a0 = A[g][2c..2c+1],
+// a1 = A[g+8][2c..], a2 = A[g][2c+8..], a3 = A[g+8][2c+8..]; B (16 x 8, col)
+// b0 = B[2c..2c+1][g], b1 = B[2c+8..2c+9][g]; the accumulator d0,d1 =
+// D[g][2c..2c+1], d2,d3 = D[g+8][2c..].  Accumulators of n-tiles 2k and 2k+1
+// are therefore the A fragment of k-step k of a following product.
+
+// four 8 x 8 b16 matrices, matrix i's rows addressed by lanes 8i..8i+7;
+// lane T receives row T/4, elements 2(T%4) and 2(T%4)+1 of each
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// the same, transposed: lane T receives rows 2(T%4) and 2(T%4)+1 of column T/4
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, fp32) += A (16 x 16) . B (16 x 8), bf16
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);            // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// (x, y) ~= hi + lo in two bf16 pairs: 16 mantissa bits, a relative error
+// of ~2^-17 where one bf16 keeps 2^-9.  A product with an operand that bf16
+// holds exactly (x, B, C, r, k, v of a bf16 run) then costs two mma.sync
+// instead of one and keeps what fp32 FMA would within the scans' 3e-5 gate.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x, y);
+  const float2 h = unpack_bf16(hi);
+  lo = pack_bf16(x - h.x, y - h.y);
 }
 
 // ---- host ------------------------------------------------------------------

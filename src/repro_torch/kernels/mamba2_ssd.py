@@ -1,11 +1,14 @@
 """Mamba2 SSD chunk scan: the Hopper kernel's wrapper and its plain version.
 
 The kernel (``csrc/mamba2_ssd.cu``) replaces the TPU kernel
-``repro/kernels/mamba2_ssd.py::mamba2_ssd_fwd``: one CTA per (batch, head)
-walks the chunks in order with the (P, N) fp32 state in shared memory.  At
-zamba2-7b's training shape it is bound by its fp32 chunk products.  It
-reads x and B/C through their strides, so the views the model cuts out of
-the conv output go in without a copy.
+``repro/kernels/mamba2_ssd.py::mamba2_ssd_fwd``.  bf16 inputs take its
+tensor-core body: a CTA walks the chunks for two heads of a batch, C.B^T
+formed once per (batch, chunk) for both, every chunk product on mma.sync
+with the fp32 operands split into hi + lo bf16 terms, each warp's rows of
+the fp32 state in registers.  fp32 inputs (the parity runs) take a scalar
+body, one CTA per (batch, head).  Both read x and B/C through their
+strides, so the views the model cuts out of the conv output go in without
+a copy.
 
 Per head, over chunks of ``CHUNK`` tokens with ``la`` the inclusive prefix
 sum of ``dt * A`` (<= 0) within the chunk and ``S0`` the state before it:

@@ -1,14 +1,19 @@
 """Chunked WKV6 recurrence: the Hopper kernel's wrapper and its plain version.
 
 The kernel (``csrc/rwkv6_scan.cu``) replaces the TPU kernel
-``repro/kernels/rwkv6_scan.py::rwkv6_chunked_fwd``: one CTA per (batch,
-head) walks the chunks in order with the (K, K) fp32 state in shared
-memory.  At rwkv6-1.6b's training shape it is bound about equally by its
-fp32 chunk products and its bytes.
+``repro/kernels/rwkv6_scan.py::rwkv6_chunked_fwd``.  bf16 inputs take its
+tensor-core body: a CTA per (batch, head) walks chunks of 64 in sub-blocks
+of 16, its warps splitting the rows and the two halves of V, the pairs
+across sub-blocks (and across the 8-token halves of one) through products
+of decay-scaled r and k about a reference point between them, the chunk
+products on mma.sync with the fp32 operands split into hi + lo bf16 terms.
+fp32 inputs (the parity runs) take a scalar body, one CTA per (batch, head)
+and chunks of 16.
 
-Both versions form the intra-chunk decay ratio pairwise,
-``e^{La_{t-1} - La_s}`` with ``s < t``, so no exponent is ever positive.
-The TPU kernel's ``k * e^{-La}`` factor overflows fp32 once a chunk's
+Neither version forms a positive exponent: the plain version takes the
+intra-chunk decay ratio ``e^{La_{t-1} - La_s}`` (``s < t``) pairwise, the
+kernel pairwise or as two factors ``<= 1`` about a reference point between
+``s`` and ``t - 1``.  The TPU kernel's ``k * e^{-La}`` factor overflows fp32 once a chunk's
 log-decay sum passes about -88 (a per-step log-decay of -1.5 over its
 64-token chunk); both versions here stay finite there and are held to the
 token recurrence (``models/rwkv.py::rwkv6_scan_plain``) instead.

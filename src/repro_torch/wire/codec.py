@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import struct
 import zlib
 from typing import Any, BinaryIO
@@ -59,6 +60,8 @@ _BF16_CODE = 12
 _JSON_CODE = 255
 
 _HDR = struct.Struct("<IBBH")  # magic, version, dtype_code, rank
+MAX_RANK = 64                  # torch's own limit on a tensor's dimensions
+_CHUNK = 1 << 24               # read size of a header or of an unseekable payload
 
 
 class WireError(ValueError):
@@ -101,35 +104,60 @@ def encode_tensor(arr: Any, out: BinaryIO) -> int:
     return n
 
 
-def _read_exact(src: BinaryIO, n: int) -> bytes:
-    buf = src.read(n)
+def _read_exact(src: BinaryIO, n: int) -> bytearray:
+    """``n`` bytes of ``src``, read in chunks as they arrive, so a corrupt
+    length cannot allocate more than the stream holds."""
+    buf = bytearray()
+    while len(buf) < n:
+        part = src.read(min(n - len(buf), _CHUNK))
+        if not part:
+            break
+        buf += part
     if len(buf) != n:
         raise WireError(f"truncated frame: wanted {n} bytes, got {len(buf)}")
     return buf
 
 
-def _read_into(src: BinaryIO, buf: np.ndarray) -> None:
+def _read_payload(src: BinaryIO, n: int) -> np.ndarray:
+    """``n`` payload bytes as a writable uint8 array: read straight into it
+    where the stream can say how many bytes it holds (a multi-GB checkpoint
+    is not copied once more), else in chunks."""
+    if not (hasattr(src, "seekable") and src.seekable()):
+        return np.frombuffer(_read_exact(src, n), np.uint8)
+    pos = src.tell()
+    left = src.seek(0, io.SEEK_END) - pos
+    src.seek(pos)
+    if n > left:
+        raise WireError(f"payload of {n} bytes exceeds the {left} bytes left")
+    buf = np.empty(max(n, 1), np.uint8)[:n]
     got = src.readinto(memoryview(buf))
-    if got != buf.size:
-        raise WireError(f"truncated frame: wanted {buf.size} bytes, got {got}")
+    if got != n:
+        raise WireError(f"truncated frame: wanted {n} bytes, got {got}")
+    return buf
 
 
-def decode_tensor(src: BinaryIO) -> torch.Tensor:
+def _read_header(src: BinaryIO) -> tuple[int, int, tuple[int, ...]]:
+    """The checked magic, version and rank of a frame: (code, rank, shape)."""
     magic, version, code, rank = _HDR.unpack(_read_exact(src, _HDR.size))
     if magic != MAGIC:
         raise WireError(f"bad magic {magic:#x}")
     if version != VERSION:
         raise WireError(f"unsupported version {version}")
+    if rank > MAX_RANK:
+        raise WireError(f"rank {rank} exceeds {MAX_RANK}")
     shape = struct.unpack(f"<{rank}Q", _read_exact(src, 8 * rank)) if rank else ()
+    return code, rank, shape
+
+
+def decode_tensor(src: BinaryIO) -> torch.Tensor:
+    code, _, shape = _read_header(src)
     if code == _JSON_CODE:
         raise WireError("unexpected JSON frame; use decode_pytree")
     try:
         dtype = DTYPE_CODES[code]
     except KeyError:
         raise WireError(f"unknown dtype code {code}") from None
-    count = int(np.prod(shape, dtype=np.int64)) if shape else 1
-    buf = np.empty(max(count, 1) * dtype.itemsize, np.uint8)[:count * dtype.itemsize]
-    _read_into(src, buf)
+    buf = _read_payload(src, math.prod(shape) * dtype.itemsize)
     (crc,) = struct.unpack("<I", _read_exact(src, 4))
     if crc != (zlib.crc32(memoryview(buf)) & 0xFFFFFFFF):
         raise WireError("payload CRC mismatch")
@@ -148,10 +176,10 @@ def _encode_json(obj: Any, out: BinaryIO) -> int:
 
 
 def _decode_json(src: BinaryIO) -> Any:
-    magic, version, code, rank = _HDR.unpack(_read_exact(src, _HDR.size))
-    if magic != MAGIC or code != _JSON_CODE or rank != 1:
+    code, rank, shape = _read_header(src)
+    if code != _JSON_CODE or rank != 1:
         raise WireError("expected JSON frame")
-    (length,) = struct.unpack("<1Q", _read_exact(src, 8))
+    (length,) = shape
     payload = _read_exact(src, length)
     (crc,) = struct.unpack("<I", _read_exact(src, 4))
     if crc != (zlib.crc32(payload) & 0xFFFFFFFF):
@@ -213,4 +241,9 @@ def dumps(tree: Any) -> bytes:
 
 
 def loads(data: bytes) -> Any:
-    return decode_pytree(io.BytesIO(data))
+    """Decode one pytree that fills ``data``; trailing bytes are an error."""
+    src = io.BytesIO(data)
+    tree = decode_pytree(src)
+    if src.tell() != len(data):
+        raise WireError(f"{len(data) - src.tell()} trailing bytes after the pytree")
+    return tree

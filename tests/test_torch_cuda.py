@@ -306,6 +306,10 @@ def _rwkv_inputs(gen, dtype, b, t, h, dk, min_log_decay):
     (1, 1, 2, 64, -0.5),                # one token
     (8, 512, 32, 64, -0.05),            # rwkv6-1.6b's training shape
     (1, 200, 2, 64, -5.0),              # strong decay: the TPU formula overflows
+    # the bf16 body's edges: chunks of 64 in sub-blocks and 8-token halves of
+    # 16, V halves of 32 (K 64) and 16 (K 32); odd head counts
+    (1, 17, 3, 64, -0.5), (2, 63, 5, 64, -0.5), (1, 65, 3, 32, -0.5), (1, 500, 5, 32, -1.0),
+    (2, 1, 5, 32, -0.5),
 ])
 def test_rwkv6_kernel(cuda_device, dtype, b, t, h, dk, min_log_decay):
     """Kernel against the plain chunked version: fp32 within 3e-5 of
@@ -324,6 +328,36 @@ def test_rwkv6_kernel(cuda_device, dtype, b, t, h, dk, min_log_decay):
     if t <= 200:
         rec, _ = rwkv6_scan_plain(r, k, v, torch.exp(lw), u)
         assert (got - rec).abs().max() <= 3e-5 * rec.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,dk", [(200, 64), (130, 32)])
+def test_rwkv6_kernel_bf16_holds_to_the_recurrence_under_strong_decay(cuda_device, t, dk):
+    """bf16 inputs with per-step log-decay down to -5 (a 64-token chunk's sum
+    reaches ~ -160): the tensor-core body against the token recurrence of
+    the same bf16 values within 2e-2 x max(1, |ref|)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t + dk)
+    r, k, v, lw, u = _rwkv_inputs(gen, torch.bfloat16, 2, t, 3, dk, -5.0)
+    got = krwkv.rwkv6_cuda(r, k, v, lw, u)
+    rec, _ = rwkv6_scan_plain(r.float(), k.float(), v.float(), torch.exp(lw), u)
+    _assert_close(got, rec, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_takes_rows_that_are_not_16_byte_aligned(cuda_device):
+    """Contiguous inputs that start one element past an aligned address take
+    the bodies' element-by-element staging; the same values as aligned ones."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    args = _rwkv_inputs(gen, torch.bfloat16, 2, 70, 3, 64, -1.0)
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+        out = buf[1:].view(a.shape)
+        out.copy_(a)
+        return out
+    moved = [shifted(a) for a in args[:4]]
+    assert all(a.data_ptr() % 16 for a in moved)
+    assert torch.equal(krwkv.rwkv6_cuda(*moved, args[4]), krwkv.rwkv6_cuda(*args))
 
 
 @pytest.mark.cuda
@@ -455,6 +489,11 @@ def _ssd_inputs(gen, dtype, b, t, h, p, n, decay):
     (1, 1, 2, 32, 16, "reference"),     # one token
     (2, 500, 4, 64, 64, "strong"),      # strong decay, ragged: a chunk's log-decay ~ -5000
     (8, 512, 112, 64, 64, "reference"),  # zamba2-7b's training shape
+    # the bf16 body's edges: head groups of 2 (odd H leaves one short),
+    # chunks of 64, rows of P in blocks of 16 (P = 32 fills half the warps)
+    (1, 17, 5, 64, 64, "reference"), (2, 63, 3, 64, 64, "reference"),
+    (1, 65, 5, 64, 64, "reference"), (1, 500, 3, 64, 64, "reference"),
+    (2, 65, 3, 32, 16, "reference"), (1, 17, 5, 32, 16, "strong"),
 ])
 def test_ssd_kernel(cuda_device, dtype, b, t, h, p, n, decay):
     """Kernel against the plain chunked version (y and the final state):
@@ -474,6 +513,44 @@ def test_ssd_kernel(cuda_device, dtype, b, t, h, p, n, decay):
         qy, qs = mamba2_scan_plain(*args)
         assert (y - qy).abs().max() <= 3e-5 * qy.abs().max()
         assert (s - qs).abs().max() <= 3e-5 * qs.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,p,n", [(500, 64, 64), (130, 32, 16)])
+def test_ssd_kernel_bf16_holds_to_the_recurrence_under_strong_decay(cuda_device, t, p, n):
+    """bf16 inputs with dt up to 5 at A = -16 (a chunk's log-decay reaches
+    ~ -5000): the tensor-core body against the token recurrence of the same
+    bf16 values, y within 2e-2 x max(1, |ref|) and the fp32 final state
+    within 3e-5 x max|ref|."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t + p)
+    args = _ssd_inputs(gen, torch.bfloat16, 2, t, 3, p, n, "strong")
+    y, s = kssd.mamba2_ssd_cuda(*args)
+    qy, qs = mamba2_scan_plain(*(a.float() for a in args))
+    _assert_close(y, qy, torch.bfloat16)
+    assert torch.isfinite(s).all() and (s - qs).abs().max() <= 3e-5 * qs.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_takes_strides_that_are_not_16_byte_aligned(cuda_device, dtype):
+    """x, B and C cut from a conv output one column wider than the model's,
+    so no token row starts 16-byte aligned: the element-by-element staging,
+    held to the plain version as test_ssd_kernel holds the aligned one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    b, t, h, p, n = 2, 100, 3, 64, 64
+    x, dt, a, _, _, d = _ssd_inputs(gen, dtype, b, t, h, p, n, "reference")
+    xbc = _rand(gen, dtype, b, t, h * p + 2 * n + 1)
+    x = xbc[..., 1:h * p + 1].reshape(b, t, h, p)
+    bm, cm = xbc[..., h * p + 1:h * p + n + 1], xbc[..., h * p + n + 1:]
+    assert x.data_ptr() % 16 and x.stride(1) % 8
+    args = (x, dt, a, bm, cm, d)
+    y, s = kssd.mamba2_ssd_cuda(*args)
+    ry, rs = kssd.mamba2_ssd_chunked_plain(*args)
+    assert (s - rs).abs().max() <= 3e-5 * rs.abs().max()
+    if dtype == torch.bfloat16:
+        _assert_close(y, ry, dtype)
+    else:
+        assert (y - ry).abs().max() <= 3e-5 * ry.abs().max()
 
 
 @pytest.mark.cuda

@@ -86,6 +86,94 @@ def test_chunked_plain_holds_to_the_recurrence_under_strong_decay():
     assert not bool(jnp.isfinite(tpu).all())
 
 
+def _split(a: torch.Tensor):
+    """a ~= hi + lo, both bf16 values (held in fp32), as the kernel splits
+    an fp32 operand for its bf16 tensor-core products."""
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
+def _prod3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over two split operands: hi.hi + hi.lo + lo.hi."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _rwkv6_tensor_core_mirror(r, k, v, log_w, u, chunk=64, sub=16):
+    """The CUDA kernel's bf16 body in plain PyTorch: chunks of 64 in
+    sub-blocks of 16, fp32 prefix sums; pairs in different sub-blocks
+    through (r_t e^{La_{t-1} - La_ref}) . (k_s e^{La_ref - La_s}) with the
+    reference point the row before t's sub-block, the diagonal sub-blocks
+    and the u bonus pairwise; P.v, the inter term (the r factor times
+    e^{La_ref}) and the state update over bf16 operands with fp32 sums, the
+    fp32 operands split into hi + lo.  Returns fp32 out (B, T, H, K)."""
+    b, t, h, dk = r.shape
+    perm = lambda a: a.permute(0, 2, 1, 3)                      # (B, H, T, K)
+    r, k, v, log_w = map(perm, (r, k, v, log_w))
+    s_t = torch.zeros((b, h, dk, dk))                           # S^T[j, kch]
+    out = torch.empty((b, h, t, dk))
+    for c0 in range(0, t, chunk):
+        rows = min(chunk, t - c0)
+
+        def pad(a):
+            o = torch.zeros((b, h, chunk, dk))
+            o[:, :, :rows] = a[:, :, c0:c0 + rows]
+            return o
+        rc, kc, vc, ld = map(pad, (r, k, v, log_w))
+        la = torch.cumsum(ld, dim=2)                            # La_t
+        lp = torch.cat([torch.zeros((b, h, 1, dk)), la[:, :, :-1]], dim=2)   # La_{t-1}
+        oc = torch.zeros((b, h, chunk, dk))
+        for w in range(chunk // sub):
+            rows_w = slice(sub * w, sub * (w + 1))
+            lref = lp[:, :, sub * w:sub * w + 1]                # La_{16w - 1}
+            rt = rc[:, :, rows_w] * torch.exp(lp[:, :, rows_w] - lref)
+            p = torch.zeros((b, h, sub, chunk))
+            if w:
+                kt = kc[:, :, :sub * w] * torch.exp(lref - la[:, :, :sub * w])
+                p[..., :sub * w] = _prod3(rt, kt.transpose(-1, -2))
+            # the diagonal sub-block pairwise, the bonus on its diagonal
+            t_idx, s_idx = torch.tril_indices(sub, sub, -1)
+            tg, sg = sub * w + t_idx, sub * w + s_idx
+            pair = (rc[:, :, tg] * kc[:, :, sg] * torch.exp(lp[:, :, tg] - la[:, :, sg])).sum(-1)
+            p[:, :, t_idx, sg] = pair
+            diag = torch.arange(sub)
+            p[:, :, diag, sub * w + diag] = (rc[:, :, rows_w] * u[None, :, None] *
+                                              kc[:, :, rows_w]).sum(-1)
+            ph, pl = _split(p)
+            oc[:, :, rows_w] = (ph @ vc + pl @ vc
+                                + _prod3(rt * torch.exp(lref), s_t.transpose(-1, -2)))
+        out[:, :, c0:c0 + rows] = oc[:, :, :rows]
+        kd_hi, kd_lo = _split(kc * torch.exp(la[:, :, -1:] - la))
+        s_t = (torch.exp(la[:, :, -1:]) * s_t
+               + vc.transpose(-1, -2) @ kd_hi + vc.transpose(-1, -2) @ kd_lo)
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("b,t,h,dk,strong", [(2, 150, 3, 32, False), (1, 65, 2, 64, False),
+                                             (1, 128, 2, 32, True)])
+def test_tensor_core_decomposition_matches_jax(b, t, h, dk, strong):
+    """The bf16 body's algebra, checked without a card: on inputs whose r,
+    k and v are bf16 values, the mirror (sub-block reference points, hi +
+    lo splits) agrees with the JAX kernel in interpret mode within 3e-5 of
+    max|ref|, and under strong decay (per-step log-decay down to -5),
+    where the TPU kernel overflows, with the JAX recurrence.  T = 65 and
+    150 leave ragged tails."""
+    rng = np.random.default_rng(t + dk)
+    lw = -5.0 * rng.random((b, t, h, dk)) if strong else None
+    r, k, v, w, u = _scan_inputs(t * h + dk, b, t, h, dk, log_decay=lw)
+    r, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in (r, k, v))
+    lw32 = np.log(w) if lw is None else lw.astype(np.float32)
+    out = _rwkv6_tensor_core_mirror(*map(torch.from_numpy, (r, k, v, lw32.astype(np.float32),
+                                                            u)))
+    assert torch.isfinite(out).all()
+    if strong:
+        ref, _ = jrwkv.rwkv6_scan_ref(*map(jnp.asarray, (r, k, v, w, u)))
+    else:
+        ref = rwkv6_chunked_fwd(*map(jnp.asarray, (r, k, v, lw32.astype(np.float32), u)),
+                                interpret=True)
+    assert _rel(out, ref) < FWD_TOL
+
+
 def test_scan_plain_carries_state_like_jax():
     """The token recurrence from a given state, with its final state."""
     b, t, h, dk = 1, 20, 2, 16

@@ -155,6 +155,73 @@ def test_strong_decay_stays_finite_and_matches_the_recurrence():
     assert torch.isnan(torch.autograd.grad(after.sum(), d)[0]).any()
 
 
+def _split(a: torch.Tensor):
+    """a ~= hi + lo, both bf16 values (held in fp32), as the kernel splits
+    an fp32 operand for its bf16 tensor-core products."""
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
+def _ssd_tensor_core_mirror(x, dt, A, B, C, D, chunk=64):
+    """The CUDA kernel's bf16 body in plain PyTorch: chunks of 64, fp64
+    prefix sums, C.B^T once per (batch, chunk) for every head, and every
+    product over bf16 operands with fp32 sums -- x, B and C exact, while
+    G, the state S and (w x) are split into hi + lo bf16 terms.  Returns
+    fp32 y (before the kernel's final bf16 rounding) and the final state."""
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    s = torch.zeros((b, h, p, n))
+    y = torch.empty((b, t, h, p))
+    causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    for c0 in range(0, t, chunk):
+        rows = min(chunk, t - c0)
+
+        def pad(a):                          # the chunk's rows, zeros past the sequence
+            out = torch.zeros((b, chunk) + a.shape[2:], dtype=a.dtype)
+            out[:, :rows] = a[:, c0:c0 + rows]
+            return out
+        xc, bc, cc, dtc = pad(x), pad(B), pad(C), pad(dt)
+        cb = cc @ bc.transpose(1, 2)                                   # (b, c, c): shared
+        la = torch.cumsum(dtc.double() * A.double(), dim=1)            # (b, c, h) fp64
+        diff = (la[:, :, None, :] - la[:, None, :, :]).float()         # (b, t, s, h)
+        decay = torch.where(causal[None, :, :, None], torch.exp(diff.clamp_max(0.0)),
+                            torch.zeros(()))
+        g = cb[..., None] * decay * dtc[:, None, :, :]                 # (b, t, s, h)
+        g_hi, g_lo = _split(g)
+        s_hi, s_lo = _split(s)
+        inter = torch.einsum("btn,bhpn->bthp", cc, s_hi) + torch.einsum("btn,bhpn->bthp", cc, s_lo)
+        intra = (torch.einsum("btsh,bshp->bthp", g_hi, xc)
+                 + torch.einsum("btsh,bshp->bthp", g_lo, xc))
+        yc = torch.exp(la).float()[..., None] * inter + intra + D[:, None] * xc
+        y[:, c0:c0 + rows] = yc[:, :rows]
+        w = torch.exp((la[:, -1:] - la).float()) * dtc                 # (b, c, h)
+        wx_hi, wx_lo = _split(w[..., None] * xc)
+        s = (torch.exp(la[:, -1].float())[..., None, None] * s
+             + torch.einsum("bshp,bsn->bhpn", wx_hi, bc) + torch.einsum("bshp,bsn->bhpn", wx_lo, bc))
+    return y, s
+
+
+@pytest.mark.parametrize("b,t,h,p,n,strong", [(2, 150, 3, 32, 16, False), (1, 65, 2, 64, 64, False),
+                                              (1, 130, 2, 32, 16, True)])
+def test_tensor_core_decomposition_matches_jax(b, t, h, p, n, strong):
+    """The bf16 body's algebra, checked without a card: on inputs whose x, B
+    and C are bf16 values, the mirror (head-shared C.B^T, hi + lo splits of
+    G, S and w x) agrees with the JAX SSD kernel in interpret mode within
+    3e-5 of max|ref| for y and the final state, and under strong decay
+    (dt up to 5, A = -16), where the TPU kernel's factoring overflows, with
+    the JAX recurrence.  T = 65, 130 and 150 leave ragged tails."""
+    x, dt, A, B, C, D = _ssd_inputs(t + h + p, b, t, h, p, n, strong=strong)
+    x, B, C = (torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in (x, B, C))
+    args = (x, dt, A, B, C, D)
+    y, s = _ssd_tensor_core_mirror(*map(torch.from_numpy, args))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    if strong:
+        ry, rs = jssm.mamba2_scan_ref(*map(jnp.asarray, args))
+    else:
+        ry, rs = mamba2_ssd_fwd(*map(jnp.asarray, args), chunk=64, interpret=True)
+    assert _rel(y, ry) < FWD_TOL and _rel(s, rs) < FWD_TOL
+
+
 @pytest.fixture(scope="module")
 def mamba_params():
     cfg = reduced_config(get_config("zamba2-7b"))
