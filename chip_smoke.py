@@ -22,12 +22,16 @@ Phases, each of which raises on failure (the script then exits nonzero):
 4. reduced granite in fp32 with the same weights on the card (kernels) and
    on the CPU (plain versions): logits and greedy ServeEngine tokens agree,
    over dense lanes and over the paged pool with the prefix cache (a run
-   with full hits, a COW split, preemptions and a rejection);
+   with full hits, a COW split, preemptions and a rejection); then reduced
+   rwkv6 and zamba2 (4 layers) over the recurrent backend: prefill logits
+   and every state leaf at B=1 and exact lengths 1-100, decode logits,
+   identical greedy tokens, and a run with a preempted lane resumed from
+   its snapshot (one prefill dispatch a request);
 5. a narrow granite in bf16 (granite-8b's attention geometry and vocab,
    d_model 1024, 4 layers) on the card against the same weights on the CPU:
    bucketed right-padded prefill and decode logits agree, and every token
    the card's dense and paged ServeEngines serve is a greedy choice of the
-   CPU model;
+   CPU model; then the recurrent checks of phase 4 in bf16;
 6. full-width granite-8b (36 layers, bf16, random seeded weights) served
    through ServeEngine over dense lanes: 16 requests, every kernel of the
    dense path launched; then the decode step, a prefill dispatch and the
@@ -38,17 +42,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (full hits), on a pool small enough to preempt; the paged kernel runs 36
    times a decode step and the dense decode kernel never; the profile of an
    engine step at batch 16 gives the paged kernel's share;
-8. ``parity_train``: reduced rwkv6, granite and zamba2 (4 layers, fp32),
+8. ``serve_rwkv`` and ``serve_hybrid``: rwkv6-1.6b (24 layers) and zamba2-7b
+   (all 81 layers) at full width, bf16, random seeded weights, served over
+   the recurrent backend with phase 6's engine and traffic, one lane
+   preempted and resumed by restore (bit-equal to its snapshot); tok/s,
+   TTFT, TPOT, the decode step's wall and device time, the state a lane
+   holds and the snapshot and restore times; then every kernel of the
+   path against its plain version at the shapes it serves (B=1 prefills
+   of 37 and 600 tokens, a decode step of 8 lanes over 1024 positions);
+9. ``parity_train``: reduced rwkv6, granite and zamba2 (4 layers, fp32),
    and rwkv6-1.6b and zamba2-7b at full width cut to 2 layers, the same
    weights on the card (kernels, their gradients through the autograd
    wrappers) and on the CPU (plain versions): loss, every gradient leaf and
    the losses of 3 AdamW steps agree;
-9. ``train``: full-width rwkv6-1.6b (24 layers, bf16, random seeded
+10. ``train``: full-width rwkv6-1.6b (24 layers, bf16, random seeded
    weights) trained 20 steps through the launcher's ``Trainer``, step
    function and AdamW on 8 x 512-token ``TokenPipeline`` batches; one
    checkpoint written, restored and found bit-equal; step time, tok/s,
    MFU, peak memory and a profile of a step;
-10. ``train_hybrid``: zamba2-7b at full width cut to 42 layers (seven
+11. ``train_hybrid``: zamba2-7b at full width cut to 42 layers (seven
    periods of its shared block; the whole model's params, grads and
    moments do not fit one card), bf16, trained 10 steps the same way, no
    checkpoint; step time, tok/s, MFU, peak memory and a profile of a step
@@ -57,8 +69,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
 no paged one, a paged path flash, paged and RMSNorm kernels and no dense
-decode one, the rwkv6 training path the rwkv6 kernel (24 times a forward,
-twice that under remat) and RMSNorm and no decode kernel, the zamba2
+decode one, a recurrent serving path exactly its prefill dispatches' and
+decode steps' launches (a prefill: the WKV6 or SSD kernel once a layer,
+flash once a zamba2 shared-block firing; a decode step: the decode kernel
+once a firing and no scan kernel; RMSNorm in both), the rwkv6 training
+path the rwkv6 kernel (24 times a forward, twice that under remat) and
+RMSNorm and no decode kernel, the zamba2
 training path the SSD kernel (42 times a forward, 84 a step), flash (7
 and 14) and RMSNorm and no decode kernel.
 
@@ -111,7 +127,7 @@ MODEL_TOL = 1e-4
 BF16_MODEL_TOL = 0.25
 
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
-          "train", "train_hybrid")
+          "serve_rwkv", "serve_hybrid", "train", "train_hybrid")
 OPT_IN = ("lr_probe", "baseline")
 
 # the kernels each serving path must launch; the other decode kernel must not
@@ -122,6 +138,8 @@ RWKV_TRAIN_PATH = ("rwkv6_scan", "rmsnorm")
 DENSE_TRAIN_PATH = ("flash_attention", "rmsnorm")
 HYBRID_TRAIN_PATH = ("mamba2_ssd", "flash_attention", "rmsnorm")
 SERVING_ONLY = ("decode_attention", "paged_decode_attention")
+# the recurrent families, served over the recurrent backend
+RECURRENT_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
 # rwkv6 and SSD kernels vs plain version or recurrence in fp32, and the SSD's
 # fp32 final state in a bf16 run: |err| <= SCAN_F32_TOL * max|ref|, the
 # reference kernels' own tolerance (tests/test_kernels.py)
@@ -831,6 +849,28 @@ def chat_scenario(model, params, vocab: int, seed: int):
     return {r.rid: r.out_tokens for r in done}, snap, sent
 
 
+def check_greedy(cpu, p_cpu, served: dict, prompts: dict, max_len: int) -> tuple:
+    """Every token served for ``prompts`` ({rid: prompt}) is a greedy choice
+    of the CPU model fed the same tokens, up to two logits' worth of the
+    bf16 tolerance: (tokens that are the CPU's exact argmax, tokens)."""
+    v = cpu.cfg.vocab_size
+    exact = n = 0
+    for rid, prompt in prompts.items():
+        out = served[rid]
+        logits, cache = cpu.prefill(p_cpu, {"tokens": torch.as_tensor(prompt)[None]}, max_len)
+        for j, tok in enumerate(out):
+            row = logits[0, :v].float()
+            if row[tok] < row.max() - 2 * BF16_MODEL_TOL:
+                raise AssertionError(f"request {rid} token {j}: the card served {tok} "
+                                     f"(CPU logit {row[tok]:.4f}), the CPU's best logit "
+                                     f"is {row.max():.4f}")
+            exact += int(tok == int(torch.argmax(row)))
+            n += 1
+            if j + 1 < len(out):
+                logits, cache = cpu.decode_step(p_cpu, cache, torch.tensor([[tok]]))
+    return exact, n
+
+
 def phase_parity(n_layers: int = 4) -> None:
     from repro_torch.configs import RunConfig, get_config, reduced_config
     from repro_torch.convert import move_params
@@ -888,6 +928,8 @@ def phase_parity(n_layers: int = 4) -> None:
         f"splits, {snap.preemptions} preemptions, {snap.rejected} rejected, "
         f"{snap.prefix_hit_tokens} of {snap.prefix_query_tokens} prompt tokens from the "
         f"cache); launches {counts}")
+    for arch in RECURRENT_ARCHS:
+        recurrent_parity(arch, "float32", n_layers)
 
 
 def phase_parity_bf16(n_layers: int = 4) -> None:
@@ -924,27 +966,6 @@ def phase_parity_bf16(n_layers: int = 4) -> None:
         cpu_drift = max(cpu_drift, (l_c - l_r).abs().max().item())
         gpu_drift = max(gpu_drift, (l_g - l_r).abs().max().item())
 
-    def check_greedy(served: dict, prompts: dict) -> tuple:
-        """Every token served for ``prompts`` ({rid: prompt}) is a greedy
-        choice of the CPU model fed the same tokens, up to two logits' worth
-        of the bf16 tolerance."""
-        exact = n = 0
-        for rid, prompt in prompts.items():
-            out = served[rid]
-            logits, cache = cpu.prefill(p_cpu, {"tokens": torch.as_tensor(prompt)[None]},
-                                        max_len)
-            for j, tok in enumerate(out):
-                row = logits[0, :v].float()
-                if row[tok] < row.max() - 2 * BF16_MODEL_TOL:
-                    raise AssertionError(f"request {rid} token {j}: the card served {tok} "
-                                         f"(CPU logit {row[tok]:.4f}), the CPU's best logit "
-                                         f"is {row.max():.4f}")
-                exact += int(tok == int(torch.argmax(row)))
-                n += 1
-                if j + 1 < len(out):
-                    logits, cache = cpu.decode_step(p_cpu, cache, torch.tensor([[tok]]))
-        return exact, n
-
     ops.reset_launch_counts()
     with torch.no_grad():
         l_g, c_g = gpu.decode_state.batched_prefill(p_gpu, {"tokens": toks.cuda()},
@@ -968,11 +989,12 @@ def phase_parity_bf16(n_layers: int = 4) -> None:
         prompts = [rng.integers(0, v, size=n) for n in (5, 12, 17, 30, 33, 60, 70, 100)]
         served, eng = _serve(gpu, p_gpu, prompts, 8, max_batch=4, max_len=max_len)
         counts = ops.launch_counts()
-        exact_argmax, n_tokens = check_greedy(served, dict(enumerate(prompts)))
+        exact_argmax, n_tokens = check_greedy(cpu, p_cpu, served, dict(enumerate(prompts)),
+                                              max_len)
         ops.reset_launch_counts()
         c_served, c_snap, c_prompts = chat_scenario(gpu, p_gpu, v, seed=14)
         c_counts = ops.launch_counts()
-        c_exact, c_n = check_greedy(c_served, c_prompts)
+        c_exact, c_n = check_greedy(cpu, p_cpu, c_served, c_prompts, max_len)
     check_path(counts, DENSE_PATH, "bf16 parity, dense")
     check_path(c_counts, PAGED_PATH, "bf16 parity, paged")
     snap = eng.metrics_snapshot()
@@ -986,10 +1008,178 @@ def phase_parity_bf16(n_layers: int = 4) -> None:
         f"({c_snap.prefill_skipped} full hits, {c_snap.cow_splits} COW splits, "
         f"{c_snap.preemptions} preemptions), {c_n} tokens all greedy choices of the CPU model "
         f"({c_exact} its exact argmax); launches {c_counts}")
+    for arch in RECURRENT_ARCHS:
+        recurrent_parity(arch, "bfloat16", n_layers)
+
+
+def recurrent_launches(cfg) -> tuple:
+    """Launches of one prefill dispatch and of one decode step of an rwkv6
+    or zamba2 model, by kernel: the WKV6 or SSD kernel once a layer and
+    flash once a shared-block firing in a prefill, the decode kernel once a
+    firing in a decode step (which runs the scans as token recurrences), and
+    RMSNorm two a layer, two a firing and the final norm in both."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.blocks import n_attn_applications
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    n_layers, n_attn = cfg.n_layers, n_attn_applications(cfg)
+    norms = 2 * n_layers + 2 * n_attn + 1
+    if cfg.rwkv:
+        return dict(zero, rwkv6_scan=n_layers, rmsnorm=norms), dict(zero, rmsnorm=norms)
+    return (dict(zero, mamba2_ssd=n_layers, flash_attention=n_attn, rmsnorm=norms),
+            dict(zero, decode_attention=n_attn, rmsnorm=norms))
+
+
+def check_launches(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def check_served_kernels(tag: str, drive, want: dict) -> dict:
+    """Run ``drive()`` with each kernel's CUDA wrapper (the function ``ops``
+    routes a card tensor to) replaced by one that also runs the kernel's
+    plain version on the same inputs and gates the two, so every kernel is
+    held at the shapes, strides and values the served path gives it: a bf16
+    output within BF16_TOL x max(1, |ref|) elementwise, an fp32 one (the
+    SSD's final state) within SCAN_F32_TOL x max|ref|.  ``want``: the calls
+    by kernel that ``drive`` must make.  Returns, by kernel, the calls, the
+    shapes of their first two inputs and the worst margin (error / limit)."""
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba2_ssd as kssd
+    from repro_torch.kernels import paged_attention as kpaged
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.kernels import rwkv6_scan as krwkv
+    pairs = {"flash_attention": (kfa, "flash_attention_cuda", kfa.flash_attention_plain),
+             "decode_attention": (kdec, "decode_attention_cuda", kdec.decode_attention_plain),
+             "paged_decode_attention": (kpaged, "paged_decode_attention_cuda",
+                                        kpaged.paged_decode_attention_plain),
+             "rmsnorm": (krms, "rmsnorm_cuda", krms.rmsnorm_plain),
+             "rwkv6_scan": (krwkv, "rwkv6_cuda", krwkv.rwkv6_chunked_plain),
+             "mamba2_ssd": (kssd, "mamba2_ssd_cuda", kssd.mamba2_ssd_chunked_plain)}
+    seen = {name: dict(calls=0, shapes=set(), margin=0.0) for name in pairs}
+
+    def checked(name, kernel, plain):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            rec = seen[name]
+            for got, r in zip(*((out, ref) if isinstance(out, tuple) else ((out,), (ref,)))):
+                if got.shape != r.shape or not torch.isfinite(got).all():
+                    raise AssertionError(f"{tag} {name} at {tuple(args[0].shape)}: shape "
+                                         f"{tuple(got.shape)} vs {tuple(r.shape)} or "
+                                         f"non-finite output")
+                m = (gate(got, r, BF16_TOL, True) if got.dtype == torch.bfloat16
+                     else gate(got, r, SCAN_F32_TOL, False))
+                rec["margin"] = max(rec["margin"], m)
+            rec["calls"] += 1
+            rec["shapes"].add(tuple(tuple(a.shape) for a in args[:2]))
+            return out
+        return call
+
+    originals = {name: getattr(mod, attr) for name, (mod, attr, _) in pairs.items()}
+    try:
+        for name, (mod, attr, plain) in pairs.items():
+            setattr(mod, attr, checked(name, originals[name], plain))
+        drive()
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, attr, _) in pairs.items():
+            setattr(mod, attr, originals[name])
+    calls = {name: rec["calls"] for name, rec in seen.items()}
+    if calls != want:
+        raise AssertionError(f"{tag} served-shape check: calls {calls}, expected {want}")
+    check_gates(f"{tag} served shapes", {name: rec["margin"] for name, rec in seen.items()
+                                         if rec["calls"]})
+    return {name: dict(calls=rec["calls"], shapes=sorted(rec["shapes"]),
+                       margin=rec["margin"]) for name, rec in seen.items() if rec["calls"]}
+
+
+def recurrent_parity(arch: str, dtype: str, n_layers: int = 4) -> None:
+    """Reduced rwkv6 or zamba2 (``n_layers`` layers) on the card against the
+    same weights on the CPU, served over the recurrent backend.  Prefill at
+    B=1 and exact prompt lengths 1, 2, 37 and 100: logits and every state
+    leaf; 4 decode steps from the longest; greedy ServeEngine tokens (fp32:
+    identical to the CPU engine's; bf16: each a greedy choice of the CPU
+    model); a run with one lane preempted after 2 steps gives the same
+    tokens with one prefill dispatch a request.  fp32 holds logits and
+    states within MODEL_TOL x max(1, |ref|); bf16 logits within
+    BF16_MODEL_TOL, states within BF16_MODEL_TOL x max(1, |ref|)."""
+    from repro_torch.configs import RunConfig, get_config, reduced_config
+    from repro_torch.convert import move_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.backends import lane_leaves
+    from repro_torch.serving.engine import ServeEngine
+    fp32 = dtype == "float32"
+    tol = MODEL_TOL if fp32 else BF16_MODEL_TOL
+    tag = f"[parity{'' if fp32 else '-bf16'}] {arch}"
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), n_layers=n_layers)
+    rcfg = RunConfig(param_dtype=dtype, compute_dtype=dtype, remat=False)
+    cpu, gpu = build_model(cfg, rcfg, device="cpu"), build_model(cfg, rcfg, device="cuda")
+    p_cpu = cpu.init(0)
+    p_gpu = move_params(p_cpu, "cuda")
+    per_prefill, per_step = recurrent_launches(cfg)
+    rng = np.random.default_rng(2)
+    v, max_len = cfg.vocab_size, 128
+    worst_logits = worst_state = 0.0
+    with torch.no_grad():
+        for t in (1, 2, 37, 100):
+            toks = torch.as_tensor(rng.integers(0, v, size=(1, t)))
+            l_c, c_c = cpu.prefill(p_cpu, {"tokens": toks}, max_len)
+            ops.reset_launch_counts()
+            l_g, c_g = gpu.prefill(p_gpu, {"tokens": toks.cuda()}, max_len)
+            check_launches(ops.launch_counts(), per_prefill, f"{tag} prefill T={t}")
+            worst_logits = max(worst_logits, check_close(
+                f"{tag} prefill T={t} logits", l_g.cpu()[:, :v], l_c[:, :v], tol, fp32))
+            ref = lane_leaves(c_c, 0)
+            for path, leaf in lane_leaves(c_g, 0).items():
+                worst_state = max(worst_state, check_close(
+                    f"{tag} prefill T={t} state {'/'.join(path)}", leaf.cpu(), ref[path], tol,
+                    True))
+        for i in range(4):
+            nxt = torch.argmax(l_c[:, :v], -1)[:, None]
+            l_c, c_c = cpu.decode_step(p_cpu, c_c, nxt)
+            ops.reset_launch_counts()
+            l_g, c_g = gpu.decode_step(p_gpu, c_g, nxt.cuda())
+            check_launches(ops.launch_counts(), per_step, f"{tag} decode step")
+            worst_logits = max(worst_logits, check_close(
+                f"{tag} decode {i} logits", l_g.cpu()[:, :v], l_c[:, :v], tol, fp32))
+        prompts = [rng.integers(0, v, size=n) for n in (5, 17, 33, 9, 60)]
+        kw = dict(max_batch=2, max_len=max_len)
+        served, eng = _serve(gpu, p_gpu, prompts, 8, **kw)
+        if eng.backend.name != "recurrent":
+            raise AssertionError(f"{tag}: served over {eng.backend.name} lanes")
+        if fp32:
+            want, _ = _serve(cpu, p_cpu, prompts, 8, **kw)
+            if served != want:
+                raise AssertionError(f"{tag}: greedy tokens differ card vs CPU: {served} vs "
+                                     f"{want}")
+            verdict = f"greedy tokens identical card vs CPU for {len(prompts)} requests"
+        else:
+            exact, n = check_greedy(cpu, p_cpu, served, dict(enumerate(prompts)), max_len)
+            verdict = (f"{n} served tokens all greedy choices of the CPU model ({exact} its "
+                       f"exact argmax)")
+        pre = ServeEngine(gpu, p_gpu, **kw)
+        for prompt in prompts:
+            pre.submit(prompt, max_new=8)
+        pre.step()
+        pre.step()
+        pre.preempt(0)
+        again = {r.rid: r.out_tokens for r in pre.run_until_drained()}
+    snap = pre.metrics_snapshot()
+    if again != served or snap.prefill_dispatches != len(prompts) or snap.resumes < 1:
+        raise AssertionError(f"{tag} preempted run: tokens {again} vs {served}, "
+                             f"{snap.prefill_dispatches} prefill dispatches for {len(prompts)} "
+                             f"requests, {snap.resumes} resumes")
+    log(f"{tag} reduced, {n_layers} layers, {dtype}, recurrent backend: card vs CPU logits "
+        f"max |err| {worst_logits:.3e}, states max |err| {worst_state:.3e} (tol {tol}"
+        f"{' x max(1, |ref|)' if fp32 else ''}); launches a prefill {per_prefill}, a decode "
+        f"step {per_step}; {verdict}; with lane 0 preempted after 2 steps the same tokens in "
+        f"{snap.prefill_dispatches} prefill dispatches ({snap.resumes} resumes)")
 
 
 # ---------------------------------------------------------------------------
-# phase 6: full-width granite-8b through ServeEngine
+# phases 6-8: full-width serving through ServeEngine
 # ---------------------------------------------------------------------------
 
 def full_width_model(n_layers: int = 0):
@@ -1195,6 +1385,161 @@ def phase_serve_paged(results: dict, model, params) -> None:
                      share="PagedLayout")
 
 
+def phase_serve_recurrent(results: dict, arch: str, path: str, n_requests: int = 16,
+                          max_new: int = 32) -> None:
+    """``arch`` (rwkv6-1.6b or zamba2-7b) at its published widths and depth,
+    bf16, random weights from seed 0, served over the recurrent backend with
+    the dense serve phase's engine and traffic: max_batch 8, max_len 1024,
+    16 greedy requests of 16-600 prompt tokens, max_new 32, each prefilled
+    alone at its exact length; after 6 decode steps the most recently
+    admitted lane is preempted and later resumes from its snapshot.  The
+    run's launches must be those of its prefill dispatches and decode steps
+    (``recurrent_launches``), and the restored lane bit-equal to its
+    snapshot (compared after the timed window).  Then each kernel of the
+    path is held against its plain version at the shapes the path serves
+    (``check_served_kernels``)."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.convert import leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.backends import lane_leaves
+    from repro_torch.serving.engine import ServeEngine
+    tag = f"[serve-{path}]"
+    cfg = get_config(arch)
+    model = build_model(cfg, RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16",
+                                       remat=False), device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"{tag} {arch} {cfg.n_layers} layers d_model {cfg.d_model}: {n_params} params "
+        f"({n_params * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    per_prefill, per_step = recurrent_launches(cfg)
+    max_batch, max_len = 8, 1024
+    eng = ServeEngine(model, params, max_batch=max_batch, max_len=max_len)
+    backend = eng.backend
+    if backend.name != "recurrent":
+        raise AssertionError(f"{tag}: the engine picked {backend.name} lanes")
+    restored = []    # (snapshot, the lane's device copy just after it) of every restore
+    restore = backend.restore
+
+    def recorded_restore(slot, snap):
+        ok = restore(slot, snap)
+        restored.append((snap, {k: t.clone() for k, t in lane_leaves(backend.cache,
+                                                                      slot).items()}))
+        return ok
+
+    backend.restore = recorded_restore
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        eng.submit(rng.integers(0, cfg.vocab_size, size=20), max_new=4)      # warm-up
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        lengths = np.linspace(16, 600, n_requests).astype(int)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.submit(p, max_new=max_new)
+        for _ in range(6):
+            eng.step()
+        victim = max((i for i, r in enumerate(eng.slots) if r is not None),
+                     key=lambda i: (eng.slots[i].admitted_t, eng.slots[i].rid))
+        eng.preempt(victim)
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    backend.restore = restore
+    restores = [all(torch.equal(lane[k].cpu(), snap[k]) for k in snap)
+                for snap, lane in restored]
+    copy_bytes = sum(t.numel() * t.element_size() for _, lane in restored
+                     for t in lane.values())
+    del restored
+    snap = eng.metrics_snapshot()
+    if len(done) != n_requests or any(len(r.out_tokens) != max_new for r in done):
+        raise AssertionError(f"{tag}: {len(done)}/{n_requests} requests finished with "
+                             f"{[len(r.out_tokens) for r in done]} tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
+        raise AssertionError(f"{tag}: a generated token lies outside the vocabulary")
+    if (snap.prefill_dispatches != n_requests or snap.preemptions != 1 or snap.resumes < 1
+            or not restores or not all(restores)):
+        raise AssertionError(f"{tag}: {snap.prefill_dispatches} prefill dispatches for "
+                             f"{n_requests} requests, {snap.preemptions} preemptions, "
+                             f"{snap.resumes} resumes, restores bit-equal {restores}")
+    want = {k: per_prefill[k] * snap.prefill_dispatches + per_step[k] * eng.steps
+            for k in counts}
+    check_launches(counts, want, f"{tag} run of {snap.prefill_dispatches} prefill dispatches "
+                                 f"and {eng.steps} decode steps")
+    gen_tokens = sum(len(r.out_tokens) for r in done)
+    lane_bytes = sum(t.numel() * t.element_size()
+                     for t in lane_leaves(backend.cache, 0).values())
+    log(f"{tag} {n_requests} requests, prompts {int(lengths.min())}-{int(lengths.max())} "
+        f"tokens, max_new {max_new}, max_batch {max_batch}, max_len {max_len}: {gen_tokens} "
+        f"tokens in {wall:.3f} s = {gen_tokens / wall:.1f} tok/s; "
+        f"{snap.prefill_dispatches} prefill dispatches, {eng.steps} decode steps, "
+        f"{snap.preemptions} preemption, {snap.resumes} resume by restore (bit-equal)")
+    log(f"{tag} TTFT mean {snap.ttft.mean * 1e3:.1f} ms p95 {snap.ttft.p95 * 1e3:.1f} ms; "
+        f"TPOT mean {snap.tpot.mean * 1e3:.2f} ms; peak device memory {peak / 2**30:.2f} GiB "
+        f"(of which {copy_bytes / 2**30:.3f} GiB the restored lanes' copies the bit-equality "
+        f"check keeps); state per lane {lane_bytes} B ({backend.state_units} elements); the "
+        f"window holds the run alone, its restores' device copies (a few ms) aside")
+    log(f"{tag} launches on the main path: {counts}")
+
+    # per dispatch and per step, and the decode step's time at a full batch
+    toks = np.zeros((max_batch, 1), np.int32)
+    active = np.ones((max_batch,), bool)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        model.prefill(params, {"tokens": torch.zeros((1, 37), dtype=torch.int64,
+                                                     device=model.device)}, max_len)
+        check_launches(ops.launch_counts(), per_prefill, f"{tag} prefill dispatch")
+        ops.reset_launch_counts()
+        logits = backend.step(params, toks, active)
+        check_launches(ops.launch_counts(), per_step, f"{tag} decode step")
+        if logits.shape[0] != max_batch or not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag}: decode logits {tuple(logits.shape)} not finite")
+        step_ms = sync_time_ms([lambda: backend.step(params, toks, active)], iters=10, warmup=2)
+        snaps_ms = sync_time_ms([lambda: backend.snapshot(1)], iters=5, warmup=1)
+        one = backend.snapshot(1)
+        restore_ms = sync_time_ms([lambda: restore(2, one)], iters=5, warmup=1)
+    log(f"{tag} decode step at batch {max_batch}: {step_ms:.3f} ms; launches a prefill "
+        f"dispatch {per_prefill}, a decode step {per_step}; snapshot {snaps_ms:.3f} ms, "
+        f"restore {restore_ms:.3f} ms a lane (CUDA events, 5 calls)")
+
+    # every kernel at the shapes this path serves: B=1 prefills of 37 tokens
+    # and of the longest prompt, one decode step of the full batch over the
+    # max_len span, each against its plain version on the same inputs
+    long_prompt = torch.as_tensor(prompts[-1][None], device=model.device)
+
+    def drive():
+        for toks_in in (long_prompt[:, :37], long_prompt):
+            model.prefill(params, {"tokens": toks_in}, max_len)
+        backend.step(params, toks, active)
+    with torch.no_grad():
+        served = check_served_kernels(tag, drive, {k: 2 * per_prefill[k] + per_step[k]
+                                                   for k in per_prefill})
+    log(f"{tag} kernels at the served shapes (B=1 prefills of 37 and "
+        f"{long_prompt.shape[1]} tokens, a decode step of {max_batch} lanes over {max_len} "
+        f"positions) against their plain versions, worst margin (error / limit): "
+        + "; ".join(f"{k} {v['calls']} calls, first two inputs {v['shapes']}, "
+                    f"{v['margin']:.3f}" for k, v in served.items()))
+    for name, rec in served.items():
+        entry = results.setdefault(name, {"name": name})
+        entry.setdefault("served_shapes", {})[path] = dict(
+            rec, shapes=[[list(d) for d in s] for s in rec["shapes"]])
+    with torch.no_grad():
+        profile_step(lambda: backend.step(params, toks, active),
+                     f"{arch} decode step, batch {max_batch}")
+        profile_step(lambda: model.prefill(params, {"tokens": long_prompt}, max_len),
+                     f"{arch} prefill dispatch, 1 x {long_prompt.shape[1]} tokens")
+    add_launches(results, counts, path)
+
+
 def time_sampler(logits: torch.Tensor, n_lanes: int, iters: int = 10) -> dict:
     """Host ms of one ``Sampler.sample`` over ``logits`` with every lane
     greedy, then with every lane stochastic (seeded, one seed per lane)."""
@@ -1272,7 +1617,7 @@ def profile_step(fn, what: str, top: int = 8, reps: int = 3, spans: tuple = (),
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: training, card vs CPU and full-width rwkv6-1.6b
+# phases 9-11: training, card vs CPU, full-width rwkv6-1.6b and zamba2-7b
 # ---------------------------------------------------------------------------
 
 def _loss_and_grads(model, params, tokens):
@@ -1940,6 +2285,12 @@ def main(argv=None) -> int:
         phase_serve_paged(results, *(full or full_width_model()))
     del full
     torch.cuda.empty_cache()
+    if "serve_rwkv" in phases:
+        phase_serve_recurrent(results, "rwkv6-1.6b", "rwkv")
+        torch.cuda.empty_cache()
+    if "serve_hybrid" in phases:
+        phase_serve_recurrent(results, "zamba2-7b", "hybrid")
+        torch.cuda.empty_cache()
     if "train" in phases:
         phase_train(results)
         torch.cuda.empty_cache()

@@ -1,10 +1,13 @@
-"""Parameters from the JAX package's layout into the port's.
+"""Parameters and decode caches from the JAX package's layout into the port's.
 
 ``params_from_jax`` takes the reference's param tree with numpy leaves
 (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns the
 port's tree: the ``(L, ...)`` stacked block leaves are cut into one dict
 per layer, and bf16 leaves (ml_dtypes arrays) cross as a ``uint16`` bit
 view reinterpreted as ``torch.bfloat16``, so no value is rounded.
+``cache_from_jax`` carries a decode cache the same way; the port keeps the
+reference's cache tree (layer-stacked leaves, ``pos``, zamba2's
+``ak``/``av``), so every leaf crosses as it is.
 """
 
 from __future__ import annotations
@@ -74,3 +77,8 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
         else:
             out[name] = tree_map(lambda a: tensor_from_numpy(a).to(device), sub)
     return out
+
+
+def cache_from_jax(tree: dict, device="cuda") -> dict:
+    """A JAX decode cache with numpy leaves as the port's cache on ``device``."""
+    return tree_map(lambda a: tensor_from_numpy(a).to(device), tree)

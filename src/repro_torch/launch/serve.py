@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --requests 8 --max-new 16 [--device cuda]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The reference's
-``--tools`` agent scenario arrives with the agentic-loop slice (ROADMAP §1
-item 9).
+Runs on ``cuda`` unless ``--device cpu`` is given.  Every ported family
+serves: ``--arch rwkv6-1.6b`` and ``--arch zamba2-7b`` on recurrent state
+lanes (the engine's default backend for them), granite-8b on dense lanes.
+The reference's ``--tools`` agent scenario arrives with the agentic-loop
+slice (ROADMAP §1 item 9).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def main(argv=None):
     toks = sum(len(r.out_tokens) for r in done)
     print(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks/dt:.1f} tok/s, {engine.steps} engine steps, "
-          f"{args.max_batch} lanes, device {args.device})")
+          f"{args.max_batch} {engine.backend.name} lanes, device {args.device})")
     for r in done[:3]:
         ttft = (r.first_token_t - r.submitted_t) * 1e3
         print(f"  req{r.rid}: ttft={ttft:.0f}ms tokens={r.out_tokens[:8]}...")

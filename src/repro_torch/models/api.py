@@ -4,13 +4,16 @@
     params = model.init(seed)
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, cache, tokens)
-    loss, aux = model.loss(params, batch)          # training: dense, rwkv, hybrid
+    loss, aux = model.loss(params, batch)
 
+Every ported family (dense, rwkv, hybrid) trains and serves.
 ``model.decode_state`` (a :class:`DecodeState`) tells the serving backends
 what the decode state supports; ``batched_prefill`` is set only where
 right-padding is provably inert (full causal attention), and the block-pool
 pair ``pool_init`` / ``pool_step`` only where the decode state is a
-position-addressed K/V cache (full attention).
+position-addressed K/V cache (full attention).  rwkv and zamba2 carry a
+recurrent state: each request is prefilled alone at its exact length, and
+the ``RecurrentBackend`` serves them.
 """
 
 from __future__ import annotations
@@ -22,14 +25,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import lm as LM
-from repro_torch.models.blocks import is_recurrent, require_kv_serving, require_ported
+from repro_torch.models.blocks import is_recurrent, require_ported
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeState:
     """``kind`` is the state taxonomy ("attention" for the dense family,
-    "recurrent" for rwkv and zamba2, which the port trains but does not
-    serve yet);
+    "recurrent" for rwkv and zamba2: a constant-size state per lane,
+    cheap to snapshot and restore);
     ``batched_prefill(params, batch, lengths, max_len)`` is the
     right-padded bucketed prefill, or None where padding would leak.
 
@@ -69,11 +72,9 @@ class Model:
 def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     """The model's entry points on ``device`` (default ``cuda``).
 
-    Dense decoder LMs train and serve; rwkv6 and zamba2 train, and their
-    serving entry points raise NotImplementedError naming the
-    recurrent-serving item;
-    other families raise naming their ROADMAP item.  Params and compute
-    share one dtype here."""
+    Dense decoder LMs, rwkv6 and zamba2 train and serve; other families
+    raise naming their ROADMAP item.  Params and compute share one dtype
+    here."""
     require_ported(cfg)
     if rcfg.param_dtype != rcfg.compute_dtype:
         raise ValueError(f"repro_torch runs with param_dtype == compute_dtype, got "
@@ -85,23 +86,14 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
         gen = torch.Generator(device=device).manual_seed(seed)
         return LM.init_lm(cfg, gen, dt)
 
-    def loss(p, b):
-        return LM.lm_loss(cfg, p, b, rcfg)
-
-    if is_recurrent(cfg):
-        def no_serving(*_a):
-            require_kv_serving(cfg)
-
-        return Model(cfg=cfg, rcfg=rcfg, device=device, init=init, loss=loss,
-                     prefill=no_serving, decode_step=no_serving, init_cache=no_serving,
-                     decode_state=DecodeState(kind="recurrent"))
-
     # right-padded batched prefill and the block pool are both exact only
     # for full causal attention (the reference's ragged_ok / pool_ok gates,
-    # restricted to the dense family the port builds): chunked_local's ring
+    # restricted to the families the port builds): recurrent state folds
+    # pad tokens in and is not position-addressed; chunked_local's ring
     # buffer is dense-span specific
+    recurrent = is_recurrent(cfg)
     batched = pool_init = pool_step = None
-    if cfg.attention == "full":
+    if cfg.attention == "full" and not recurrent:
         def batched(p, b, ln, ml):
             return LM.lm_prefill_padded(cfg, p, b, ln, rcfg, ml)
 
@@ -114,10 +106,11 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     return Model(
         cfg=cfg, rcfg=rcfg, device=device,
         init=init,
-        loss=loss,
+        loss=lambda p, b: LM.lm_loss(cfg, p, b, rcfg),
         prefill=lambda p, b, ml: LM.lm_prefill(cfg, p, b, rcfg, ml),
         decode_step=lambda p, c, t: LM.lm_decode_step(cfg, p, c, t, rcfg),
         init_cache=lambda bsz, ml: LM.init_cache(cfg, bsz, ml, dt, device),
-        decode_state=DecodeState(kind="attention", batched_prefill=batched,
-                                 pool_init=pool_init, pool_step=pool_step),
+        decode_state=DecodeState(kind="recurrent" if recurrent else "attention",
+                                 batched_prefill=batched, pool_init=pool_init,
+                                 pool_step=pool_step),
     )

@@ -5,26 +5,28 @@ and the hybrid family's Mamba2 layers and shared block).
     init_shared(gen, cfg, dtype)                     -> zamba2's shared block, or None
     block_train(cfg, bp, x)                               -> x  (full sequence, no cache)
     shared_attn_train(cfg, shared, x, idx)                -> x  (fires every attn_every)
-    block_prefill(cfg, bp, x, rope, span)                 -> (x, {"k", "v"})
+    block_prefill(cfg, bp, x, rope, span)                 -> (x, cache layer)
     block_decode(cfg, bp, x, ck, cv, rope, rows, valid)   -> x  (ck/cv in place)
     block_decode_paged(cfg, bp, x, kp, vp, rope, rows, block_tables, p_eff)
                                                           -> x  (kp/vp in place)
+    block_decode_recurrent(cfg, bp, x, st)                -> x  (st in place)
+    shared_attn_prefill(cfg, shared, x, idx, rope, ak, av)           -> x  (slot in place)
+    shared_attn_decode(cfg, shared, x, idx, ak, av, rope, rows, valid) -> x  (slot in place)
 
 ``rope`` / ``rows`` / ``valid`` / ``p_eff`` depend only on positions, so the
-assembly computes them once per forward for all layers.
+assembly computes them once per forward for all layers.  A cache layer is
+``{"k", "v"}`` for the dense family, ``{"S", "last", "last_c"}`` for rwkv
+and ``{"conv", "ssm"}`` for the hybrid family's Mamba2 layers; zamba2's
+shared block keeps its K/V in the ``ak``/``av`` slots, one per firing
+(slot ``idx // attn_every``).
 
 The layer-stacked cache is allocated whole by
-:func:`repro_torch.models.attention.init_kv_cache`, so the reference's
-one-layer ``init_cache_layer`` has no counterpart here.  The reference's
-per-layer MoE auxiliary loss is 0 for the families here, so
-:func:`block_train` returns x alone.
-
-rwkv and hybrid (zamba2) blocks train (``block_train``, and the shared
-attention+MLP block, one set of weights fired by the assembly every
-``attn_every`` layers) but do not serve yet: recurrent serving comes with
-the ``RecurrentBackend`` (ROADMAP §1).  Other families (MoE, pure SSM,
-enc-dec, frontends) are not ported yet (ROADMAP §1 item 10);
-:func:`require_ported` names that item.
+:func:`repro_torch.models.lm.init_cache`, so the reference's one-layer
+``init_cache_layer`` has no counterpart here.  The reference's per-layer
+MoE auxiliary loss is 0 for the families here, so :func:`block_train`
+returns x alone.  Other families (MoE, pure SSM, enc-dec, frontends) are
+not ported yet (ROADMAP §1 item 10); :func:`require_ported` names that
+item.
 """
 
 from __future__ import annotations
@@ -56,17 +58,6 @@ def require_ported(cfg: ModelConfig) -> None:
 def is_recurrent(cfg: ModelConfig) -> bool:
     """rwkv and zamba2 carry a recurrent state when they serve."""
     return cfg.rwkv or cfg.family == "hybrid"
-
-
-def require_kv_serving(cfg: ModelConfig) -> None:
-    """The serving entry points take families with a K/V cache: rwkv's and
-    zamba2's recurrent state is served by the ``RecurrentBackend``, not
-    ported yet."""
-    require_ported(cfg)
-    if is_recurrent(cfg):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: recurrent serving (the RecurrentBackend; rwkv/ssm prefill and "
-            f"decode) is not ported to repro_torch yet (ROADMAP §1 item 13); it trains")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> dict:
@@ -101,10 +92,10 @@ def n_attn_applications(cfg: ModelConfig) -> int:
 def block_train(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
     """One layer over a full sequence from an empty state (training)."""
     if cfg.rwkv:
-        x = x + rwkv_mod.apply_rwkv6_tmix(bp["rwkv"], cfg, rmsnorm(bp["ln1"], x))
-        return x + rwkv_mod.apply_rwkv6_cmix(bp["rwkv"], cfg, rmsnorm(bp["ln2"], x))
+        x = x + rwkv_mod.apply_rwkv6_tmix(bp["rwkv"], cfg, rmsnorm(bp["ln1"], x))[0]
+        return x + rwkv_mod.apply_rwkv6_cmix(bp["rwkv"], cfg, rmsnorm(bp["ln2"], x))[0]
     if cfg.family == "hybrid":
-        return x + ssm_mod.apply_mamba2(bp["mamba"], cfg, rmsnorm(bp["ln"], x))
+        return x + ssm_mod.apply_mamba2(bp["mamba"], cfg, rmsnorm(bp["ln"], x))[0]
     x = x + attn.attention(bp["attn"], cfg, rmsnorm(bp["ln1"], x), causal=True)
     return x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
 
@@ -119,9 +110,21 @@ def shared_attn_train(cfg: ModelConfig, shared: dict, x: torch.Tensor,
     return h + apply_mlp(shared["mlp"], rmsnorm(shared["ln2"], h), cfg.act)
 
 
-def block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor, rope: attn.Rope,
+def block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor, rope: Optional[attn.Rope],
                   span: int) -> Tuple[torch.Tensor, dict]:
+    """One layer over a prompt from the empty state: (x, the layer's cache
+    content).  rwkv and Mamba2 layers take their scan kernels and ignore
+    ``rope``/``span``."""
     dtype = x.dtype
+    if cfg.rwkv:
+        h, st = rwkv_mod.apply_rwkv6_tmix(bp["rwkv"], cfg, rmsnorm(bp["ln1"], x),
+                                          keep_state=True)
+        x = x + h
+        h, last_c = rwkv_mod.apply_rwkv6_cmix(bp["rwkv"], cfg, rmsnorm(bp["ln2"], x))
+        return x + h, {"S": st["S"], "last": st["last"], "last_c": last_c}
+    if cfg.family == "hybrid":
+        h, st = ssm_mod.apply_mamba2(bp["mamba"], cfg, rmsnorm(bp["ln"], x))
+        return x + h, st
     h, ck, cv = attn.prefill_attn(bp["attn"], cfg, rmsnorm(bp["ln1"], x), rope, span)
     x = x + h
     x = x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
@@ -145,3 +148,54 @@ def block_decode_paged(cfg: ModelConfig, bp: dict, x: torch.Tensor, kp: torch.Te
     x = x + attn.decode_attn_paged(bp["attn"], cfg, rmsnorm(bp["ln1"], x), kp, vp, rope, rows,
                                    block_tables, p_eff)
     return x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
+
+
+def block_decode_recurrent(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+                           st: dict) -> torch.Tensor:
+    """One-token step of an rwkv or Mamba2 layer by the token recurrence (no
+    kernel but RMSNorm, as the reference's decode); ``st`` holds the
+    layer's state leaves (views into the stacked cache), overwritten in
+    place with the state after x."""
+    if cfg.rwkv:
+        h, new = rwkv_mod.apply_rwkv6_tmix(bp["rwkv"], cfg, rmsnorm(bp["ln1"], x),
+                                           state={"S": st["S"], "last": st["last"]})
+        x = x + h
+        h, new["last_c"] = rwkv_mod.apply_rwkv6_cmix(bp["rwkv"], cfg, rmsnorm(bp["ln2"], x),
+                                                     state={"last_c": st["last_c"]})
+    else:
+        h, new = ssm_mod.apply_mamba2(bp["mamba"], cfg, rmsnorm(bp["ln"], x), state=st)
+    for name, t in new.items():
+        st[name].copy_(t)
+    return x + h
+
+
+def shared_attn_prefill(cfg: ModelConfig, shared: dict, x: torch.Tensor, idx: int,
+                        rope: attn.Rope, ak: torch.Tensor, av: torch.Tensor) -> torch.Tensor:
+    """zamba2's shared block after layer ``idx`` over a prompt: where it
+    fires, its K/V go into slot ``idx // attn_every`` of the stacked slots
+    ak/av (n_attn, B, span, KVH, Dh), in place; else x passes through."""
+    if idx % cfg.attn_every:
+        return x
+    slot = idx // cfg.attn_every
+    h, ck, cv = attn.prefill_attn(shared["attn"], cfg, rmsnorm(shared["ln1"], x), rope,
+                                  ak.shape[2])
+    ak[slot].copy_(ck)
+    av[slot].copy_(cv)
+    y = x + h
+    return y + apply_mlp(shared["mlp"], rmsnorm(shared["ln2"], y), cfg.act)
+
+
+def shared_attn_decode(cfg: ModelConfig, shared: dict, x: torch.Tensor, idx: int,
+                       ak: torch.Tensor, av: torch.Tensor, rope: attn.Rope, rows: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """One-token step of zamba2's shared block after layer ``idx``: where it
+    fires, the decode kernel reads slot ``idx // attn_every`` and this
+    token's K/V are written into it.  ``ak[slot]`` with an int slot is a
+    view, so the write lands in the stacked tensor (an index tensor would
+    copy the slot and drop the write)."""
+    if idx % cfg.attn_every:
+        return x
+    slot = idx // cfg.attn_every
+    y = x + attn.decode_attn(shared["attn"], cfg, rmsnorm(shared["ln1"], x), ak[slot], av[slot],
+                             rope, rows, valid)
+    return y + apply_mlp(shared["mlp"], rmsnorm(shared["ln2"], y), cfg.act)

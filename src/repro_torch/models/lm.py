@@ -9,17 +9,23 @@ Params::
      "final_ln": {"scale": (D,)},
      "head": {"w": (D, Vp)}}                  # absent when tied
 
-Cache (decode), dense lanes or a block pool::
+Cache (decode), the reference's tree: dense lanes or a block pool, or the
+recurrent state of rwkv and zamba2::
 
     {"layers": {"k": (L, B, span, KVH, Dh), "v": ...}, "pos": (B,) int32}
     {"layers": {"k": (L, NB + 1, bs, KVH, Dh), "v": ...}, "pos": (B,) int32}
+    {"layers": {"S": (L, B, H, K, K) fp32, "last": (L, B, D), "last_c": (L, B, D)},
+     "pos": (B,) int32}                                                   # rwkv
+    {"layers": {"conv": (L, B, K-1, C), "ssm": (L, B, H, P, N) fp32},
+     "ak": (n_attn, B, span, KVH, Dh), "av": ..., "pos": (B,) int32}     # hybrid
 
-Training (:func:`lm_loss`) runs for all three families; serving (prefill,
-decode, caches) for the dense family only.
+Leaves not marked fp32 are in the compute dtype.  Every family trains
+(:func:`lm_loss`) and serves (prefill, decode, caches); the batched padded
+prefill and the block pool are the dense family's.
 
-Decode writes each step's K/V into ``cache["layers"]`` IN PLACE (the
-reference donates the buffers to jit instead) and returns a cache dict with
-the advanced ``pos``.
+Decode writes each step's K/V, or each layer's new recurrent state, into
+the cache IN PLACE (the reference donates the buffers to jit instead) and
+returns a cache dict with the advanced ``pos``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import blocks as B
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import cache_span, decode_slots, init_kv_cache, paged_slots
 from repro_torch.models.common import (chunked_xent, embed_tokens, init_embed, init_head,
                                        init_rmsnorm, rmsnorm, rope_tables)
@@ -113,30 +121,33 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
 
 def _prefill_trunk(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                    rcfg: RunConfig, max_len: int) -> Tuple[torch.Tensor, dict]:
-    """Prompt forward: (hidden (B,T,D) after the final norm, stacked K/V)."""
+    """Prompt forward: (hidden (B,T,D) after the final norm, the cache:
+    every layer's content, zamba2's ``ak``/``av``, ``pos`` still 0)."""
     cdt = dtype_of(rcfg.compute_dtype)
     tokens = batch["tokens"]
     bsz, t = tokens.shape
     x = embed_tokens(params["embed"], tokens, cdt)
     span = cache_span(cfg, max_len)
-    rope = rope_tables(torch.arange(t, device=tokens.device)[None, :], cfg.head_dim,
-                       cfg.rope_theta)
-    layers = init_kv_cache(cfg, bsz, max_len, cdt, tokens.device)
+    rope = None if cfg.rwkv else rope_tables(torch.arange(t, device=tokens.device)[None, :],
+                                              cfg.head_dim, cfg.rope_theta)
+    cache = init_cache(cfg, bsz, max_len, cdt, tokens.device)
+    shared = params.get("shared")
     for i, bp in enumerate(params["blocks"]):
         x, cl = B.block_prefill(cfg, bp, x, rope, span)
-        layers["k"][i].copy_(cl["k"])
-        layers["v"][i].copy_(cl["v"])
-    return rmsnorm(params["final_ln"], x), layers
+        for name, leaf in cl.items():
+            cache["layers"][name][i].copy_(leaf)
+        if shared is not None:
+            x = B.shared_attn_prefill(cfg, shared, x, i, rope, cache["ak"], cache["av"])
+    return rmsnorm(params["final_ln"], x), cache
 
 
 def lm_prefill(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                rcfg: RunConfig, max_len: int) -> Tuple[torch.Tensor, dict]:
     """Process a prompt; return (last-token logits (B, Vp), cache)."""
-    x, layers = _prefill_trunk(cfg, params, batch, rcfg, max_len)
-    bsz, t = x.shape[:2]
+    x, cache = _prefill_trunk(cfg, params, batch, rcfg, max_len)
     logits = head_logits(cfg, params, x[:, -1])
-    pos = torch.full((bsz,), t, dtype=torch.int32, device=x.device)
-    return logits, {"layers": layers, "pos": pos}
+    cache["pos"].fill_(x.shape[1])
+    return logits, cache
 
 
 def lm_prefill_padded(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
@@ -149,17 +160,20 @@ def lm_prefill_padded(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Ten
     are gathered at each lane's last real position, and the per-lane cache
     ``pos`` masks the pad garbage out of decode until the step that
     overwrites it."""
-    x, layers = _prefill_trunk(cfg, params, batch, rcfg, max_len)
-    lengths = lengths.to(torch.int32)
+    x, cache = _prefill_trunk(cfg, params, batch, rcfg, max_len)
     h = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1]
     logits = head_logits(cfg, params, h)
-    return logits, {"layers": layers, "pos": lengths}
+    cache["pos"].copy_(lengths)
+    return logits, cache
 
 
 def lm_decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
                    rcfg: RunConfig) -> Tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1) int.  Returns (logits (B,Vp), cache);
-    the K/V of ``cache["layers"]`` are updated in place."""
+    the K/V or recurrent state of ``cache["layers"]`` (and zamba2's
+    ``ak``/``av``) are updated in place."""
+    if B.is_recurrent(cfg):
+        return _decode_step_recurrent(cfg, params, cache, tokens, rcfg)
     cdt = dtype_of(rcfg.compute_dtype)
     x = embed_tokens(params["embed"], tokens, cdt)
     pos = cache["pos"]
@@ -171,6 +185,28 @@ def lm_decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Te
     x = rmsnorm(params["final_ln"], x)
     logits = head_logits(cfg, params, x[:, -1])
     return logits, {"layers": cache["layers"], "pos": pos + 1}
+
+
+def _decode_step_recurrent(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
+                           rcfg: RunConfig) -> Tuple[torch.Tensor, dict]:
+    """:func:`lm_decode_step` of rwkv and zamba2: every layer by its token
+    recurrence, zamba2's shared block by the decode kernel over its slot."""
+    cdt = dtype_of(rcfg.compute_dtype)
+    x = embed_tokens(params["embed"], tokens, cdt)
+    pos = cache["pos"]
+    layers = cache["layers"]
+    shared = params.get("shared")
+    if shared is not None:
+        ak, av = cache["ak"], cache["av"]
+        rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        rows, valid = decode_slots(cfg, pos, ak.shape[2])
+    for i, bp in enumerate(params["blocks"]):
+        x = B.block_decode_recurrent(cfg, bp, x, {k: v[i] for k, v in layers.items()})
+        if shared is not None:
+            x = B.shared_attn_decode(cfg, shared, x, i, ak, av, rope, rows, valid)
+    x = rmsnorm(params["final_ln"], x)
+    logits = head_logits(cfg, params, x[:, -1])
+    return logits, {**cache, "pos": pos + 1}
 
 
 def lm_decode_step_pool(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
@@ -197,9 +233,23 @@ def lm_decode_step_pool(cfg: ModelConfig, params: dict, cache: dict, tokens: tor
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                device) -> dict:
-    B.require_kv_serving(cfg)
-    return {"layers": init_kv_cache(cfg, batch, max_len, dtype, device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    """The zeroed decode cache of ``batch`` lanes (the module docstring's
+    layouts): K/V lanes, or the recurrent state of every layer and zamba2's
+    shared-block slots."""
+    B.require_ported(cfg)
+    if cfg.rwkv:
+        layers = rwkv_mod.init_rwkv6_state(cfg, batch, cfg.n_layers, dtype, device)
+    elif cfg.family == "hybrid":
+        layers = ssm_mod.init_mamba2_state(cfg, batch, cfg.n_layers, dtype, device)
+    else:
+        layers = init_kv_cache(cfg, batch, max_len, dtype, device)
+    cache = {"layers": layers, "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    n_attn = B.n_attn_applications(cfg)
+    if n_attn:
+        shape = (n_attn, batch, cache_span(cfg, max_len), cfg.n_kv_heads, cfg.head_dim)
+        cache["ak"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["av"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 def init_pool_cache(cfg: ModelConfig, n_lanes: int, n_blocks: int, block_size: int,
@@ -207,7 +257,7 @@ def init_pool_cache(cfg: ModelConfig, n_lanes: int, n_blocks: int, block_size: i
     """Pooled KV cache: ``n_blocks`` usable blocks + 1 sink (block id 0),
     sized by live tokens rather than lanes x worst-case length; per-lane
     block tables (backend-owned) map logical positions to pool slots."""
-    B.require_kv_serving(cfg)
+    B.require_ported(cfg)
     shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)},

@@ -1,4 +1,4 @@
-"""Mamba2 (SSD) block, full-sequence form (port of ``repro/models/ssm.py``).
+"""Mamba2 (SSD) block (port of ``repro/models/ssm.py``).
 
 State-space recurrence per head h: for step t
     S_t = exp(dt_t * A) * S_{t-1} + dt_t * (B_t ⊗ x_t)        S: (dh, n)
@@ -6,13 +6,14 @@ State-space recurrence per head h: for step t
 with data-dependent dt (softplus), scalar A per head, depthwise causal conv
 on (x, B, C), and a gated RMSNorm output (SiLU(z) gate).
 
-The SSD scan of a whole sequence goes through ``ops.mamba2_ssd`` (the
-chunked kernel on the card, its plain chunked version on the CPU);
-:func:`mamba2_scan_plain` is the token recurrence, the oracle both are held
-to.  The reference takes its kernel only for a full sequence from a zero
-state (training); its carried-state forms (``state=``, the conv tail,
-``init_mamba2_state``) serve prefill and decode through the recurrence and
-come with recurrent serving (ROADMAP §1).
+The SSD scan of a whole sequence from the zero state (training and
+prefill) goes through ``ops.mamba2_ssd`` (the chunked kernel on the card,
+its plain chunked version on the CPU), which also returns the fp32 final
+state.  A carried state (``state=``: the conv tail and the ssm state;
+decode, one token a step) goes through :func:`mamba2_scan_plain`, the token
+recurrence, in PyTorch as the reference's ``lax.scan``; it is also the
+oracle the kernel and the chunked version are held to.
+:func:`init_mamba2_state` lays out the serving state of every layer.
 """
 
 from __future__ import annotations
@@ -62,14 +63,20 @@ def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     return torch.split(proj, [d_in, d_in + 2 * n, nheads], dim=-1)   # z, xbc, dt
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv along T from a zero state, then SiLU: xbc
-    (B,T,C), w (K,C).  The reference's shifted sum of products, in the
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv along T, then SiLU: xbc (B,T,C), w (K,C);
+    ``state`` (B,K-1,C) holds the K-1 inputs before xbc (zeros when None).
+    Returns (y, the new tail: the last K-1 inputs, the zero pad included
+    where T < K-1).  The reference's shifted sum of products, in the
     compute dtype (``F.conv1d`` in fp32 would go through cuDNN on the card)."""
     k, t = w.shape[0], xbc.shape[1]
-    xp = F.pad(xbc, (0, 0, k - 1, 0))                  # (B, T+K-1, C)
+    if state is None:
+        xp = F.pad(xbc, (0, 0, k - 1, 0))              # (B, T+K-1, C)
+    else:
+        xp = torch.cat([state.to(xbc.dtype), xbc], dim=1)
     y = sum(xp[:, i:i + t] * w[i] for i in range(k))
-    return F.silu(y + b.to(y.dtype))
+    return F.silu(y + b.to(y.dtype)), xp[:, t:]
 
 
 def mamba2_scan_plain(x_h: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -94,18 +101,41 @@ def mamba2_scan_plain(x_h: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: t
     return y.to(x_h.dtype), s
 
 
-def apply_mamba2(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Full sequence from a zero state (training): x (B,T,D) -> (B,T,D)."""
+def apply_mamba2(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 state: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
+    """x (B,T,D) -> (out (B,T,D), the state after x: {"conv" (B,K-1,C),
+    "ssm" (B,H,P,N) fp32}).
+
+    Without ``state`` x starts from the zero state (training, prefill) and
+    the scan is ``ops.mamba2_ssd``, whose final state carries no gradient;
+    with ``state`` (decode) the token recurrence carries it, and the new
+    conv tail takes ``state["conv"]``'s dtype."""
     d_in, nheads, _ = dims(cfg)
     n = N_GROUPS * cfg.ssm_state
     bsz, t = x.shape[:2]
     z, xbc, dt = _split_proj(cfg, x @ params["in_proj"])
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    xbc, tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                             None if state is None else state["conv"])
     xh, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
     xh = xh.reshape(bsz, t, nheads, cfg.ssm_headdim)
     A = -torch.exp(params["A_log"])
     dt = F.softplus(dt.float() + params["dt_bias"])
-    y, _ = ops.mamba2_ssd(xh, dt, A, B, C, params["D"])
+    if state is None:
+        y, S = ops.mamba2_ssd(xh, dt, A, B, C, params["D"])
+    else:
+        y, S = mamba2_scan_plain(xh, dt, A, B, C, params["D"], state["ssm"])
+        tail = tail.to(state["conv"].dtype)
     y = y.reshape(bsz, t, d_in)
     y = rmsnorm({"scale": params["norm_scale"]}, y * F.silu(z.to(y.dtype)))
-    return y @ params["out_proj"]
+    return y @ params["out_proj"], {"conv": tail, "ssm": S}
+
+
+def init_mamba2_state(cfg: ModelConfig, batch: int, n_layers: int, dtype: torch.dtype,
+                      device) -> dict:
+    """Zeroed serving state of ``n_layers`` layers: the conv tail in
+    ``dtype``, the ssm state in fp32."""
+    _, nheads, conv_dim = dims(cfg)
+    return {"conv": torch.zeros((n_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((n_layers, batch, nheads, cfg.ssm_headdim, cfg.ssm_state),
+                               dtype=torch.float32, device=device)}

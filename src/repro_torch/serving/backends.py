@@ -18,17 +18,20 @@ and speaks only its verbs (``slot`` is a lane index):
   a decode step (grow, COW-split, uncache); ``False`` = out of memory, the
   engine preempts a victim and retries.
 * ``step(params, tokens, active)`` -- advance every lane one token.
+* ``snapshot(slot)`` / ``restore(slot, snap)`` -- preemption support: a
+  layout with a small constant-size state returns a host copy of the lane,
+  and a preempted request resumes from it without recompute; ``None`` /
+  ``False`` mean the recompute (re-prefill) policy applies.
 * ``release(slot, tokens)`` -- free the lane; paged registers the token
   content actually written so future prompts can prefix-match it.
 
 Implementations: :class:`DenseBackend` (one ``max_len``-wide lane per
-slot) and :class:`PagedBackend` (block-pooled KV with refcounted
-copy-on-write prefix caching over :class:`BlockManager`).  The recurrent
-layout comes with the recurrent families (ROADMAP §1 item 13), the
+slot), :class:`PagedBackend` (block-pooled KV with refcounted
+copy-on-write prefix caching over :class:`BlockManager`) and
+:class:`RecurrentBackend` (rwkv and zamba2: constant-footprint state lanes,
+admission charged in state units, snapshot/restore preemption).  The
 speculative verbs (``append_tokens`` / ``verify_step`` / ``rollback`` /
-``reset_lane``) with speculative decoding (item 7), and state snapshots with
-the recurrent layout that can use them: both layouts here resume a
-preempted lane by re-prefill.
+``reset_lane``) come with speculative decoding (ROADMAP §1 item 7).
 
 Where the reference's jitted helpers return updated caches, the backends
 here update the cache tensors on the model's device in place.
@@ -37,7 +40,7 @@ here update the cache tensors on the model's device in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,10 +71,20 @@ class Reservation:
     full_hit: bool = False
 
 
+def lane_leaves(cache: dict, lane: int) -> Dict[Tuple[str, ...], torch.Tensor]:
+    """Lane ``lane`` of every leaf of a lane-layout cache, as views keyed by
+    the leaf's path: the layer-stacked leaves and zamba2's slot-stacked
+    ``ak``/``av`` hold their lanes on axis 1, ``pos`` on axis 0."""
+    out = {("layers", name): t[:, lane] for name, t in cache["layers"].items()}
+    out.update({(name,): t[lane] if name == "pos" else t[:, lane]
+                for name, t in cache.items() if name != "layers"})
+    return out
+
+
 class CacheBackend:
     """Base class: the attributes fleet code reads off every backend
-    (``REQUIRED_ATTRS``) and the gauges, at the values of a layout without
-    blocks, versioned state or free snapshots."""
+    (``REQUIRED_ATTRS``), the gauges and the snapshot verbs, at the values
+    of a layout without blocks, versioned state or free snapshots."""
 
     REQUIRED_ATTRS = ("name", "n_blocks", "state_version", "snapshot_free")
 
@@ -92,8 +105,18 @@ class CacheBackend:
     # bumped whenever capacity/match state changes; footprints computed at
     # one version stay valid while it holds (engine memoizes against it)
     state_version = 0
-    # True where a preempted lane resumes WITHOUT recompute (no layout here)
+    # True where snapshot()/restore() resume a preempted lane WITHOUT recompute
     snapshot_free = False
+
+    def snapshot(self, slot: int) -> Optional[Dict[Tuple[str, ...], torch.Tensor]]:
+        """A host copy of the lane's state, or None: the recompute policy,
+        the resume re-prefills."""
+        return None
+
+    def restore(self, slot: int, snap) -> bool:
+        """Install ``snap`` into the lane; False (and nothing changed) where
+        the layout takes no snapshots."""
+        return False
 
     def fits(self, n_ctx: int, final_len: int) -> bool:
         """Could a request with this FINAL footprint ever be admitted
@@ -152,10 +175,11 @@ class DenseBackend(CacheBackend):
 
     def prefill_paste(self, slot: int, group_cache: dict, src_lane: int, n_ctx: int,
                       width: int, res: Reservation) -> None:
-        """Copy lane ``src_lane`` of a prefill cache into decode lane ``slot``."""
-        for name in ("k", "v"):
-            self.cache["layers"][name][:, slot].copy_(group_cache["layers"][name][:, src_lane])
-        self.cache["pos"][slot] = group_cache["pos"][src_lane]
+        """Copy lane ``src_lane`` of a prefill cache into decode lane
+        ``slot``, every leaf with a lane axis."""
+        src = lane_leaves(group_cache, src_lane)
+        for path, dst in lane_leaves(self.cache, slot).items():
+            dst.copy_(src[path])
 
     def activate(self, slot: int, res: Reservation, n_ctx: int) -> None:
         raise NotImplementedError("dense lanes never produce full hits")
@@ -170,6 +194,41 @@ class DenseBackend(CacheBackend):
 
     def release(self, slot: int, tokens: Optional[Sequence[int]] = None) -> None:
         pass                 # lane garbage is overwritten by the next paste
+
+
+class RecurrentBackend(DenseBackend):
+    """Constant-footprint lanes for the recurrent families (rwkv, zamba2).
+
+    A lane's state does not grow with its context: per layer the rwkv WKV
+    and shift states or the Mamba2 conv tail and ssm state, plus zamba2's
+    shared-block K/V slots.  ``token_footprint`` reports that fixed size
+    (``state_units``, elements per lane over every leaf, ``pos`` included);
+    every lane costs the same, so admission stays bound by the lane count.
+    Preemption is where the layout pays: ``snapshot`` copies the lane to
+    the host and a preempted request resumes from it with zero recompute."""
+
+    name = "recurrent"
+    snapshot_free = True
+
+    def __init__(self, model: Model, n_lanes: int, max_len: int):
+        super().__init__(model, n_lanes, max_len)
+        self.state_units = sum(t.numel() for t in lane_leaves(self.cache, 0).values())
+
+    def token_footprint(self, n_ctx: int, max_new: int,
+                        tokens: Optional[Sequence[int]] = None) -> int:
+        return self.state_units     # independent of prompt and generation length
+
+    def snapshot(self, slot: int) -> Dict[Tuple[str, ...], torch.Tensor]:
+        """A host copy of the lane's every leaf.  The copies are synchronous:
+        each is complete when it returns, so a later in-place decode step
+        cannot change it."""
+        return {path: t.to("cpu", copy=True)
+                for path, t in lane_leaves(self.cache, slot).items()}
+
+    def restore(self, slot: int, snap: Dict[Tuple[str, ...], torch.Tensor]) -> bool:
+        for path, dst in lane_leaves(self.cache, slot).items():
+            dst.copy_(snap[path])
+        return True
 
 
 class PagedBackend(CacheBackend):
@@ -408,13 +467,19 @@ def make_backend(model: Model, n_lanes: int, max_len: int, config) -> CacheBacke
     """Pick the backend for (model, engine config).
 
     ``config`` is the engine's :class:`~repro_torch.serving.engine.EngineConfig`.
-    ``config.backend`` forces a layout (``"dense" | "paged"``); the default
-    ``None`` picks the block pool wherever the model has one and
-    ``kv_blocks`` is set, dense lanes otherwise."""
+    ``config.backend`` forces a layout (``"dense" | "paged" | "recurrent"``);
+    the default ``None`` picks the block pool wherever the model has one and
+    ``kv_blocks`` is set, recurrent lanes for the recurrent families (with
+    or without ``kv_blocks``), dense lanes otherwise."""
     ds = model.decode_state
     choice = config.backend
     if choice is None:
-        choice = "paged" if config.kv_blocks is not None and ds.poolable else "dense"
+        if config.kv_blocks is not None and ds.poolable:
+            choice = "paged"
+        elif ds.kind == "recurrent":
+            choice = "recurrent"
+        else:
+            choice = "dense"
     if choice == "paged":
         if not ds.poolable:
             raise ValueError(f"{model.cfg.arch_id}: no pool-layout decode state; only "
@@ -426,9 +491,9 @@ def make_backend(model: Model, n_lanes: int, max_len: int, config) -> CacheBacke
                             watermark_frac=config.watermark_frac,
                             prefix_cache=config.prefix_cache)
     if choice == "recurrent":
-        raise ValueError(f"backend='recurrent' on a {ds.kind!r}-state family (the "
-                         f"recurrent layout comes with the recurrent families, "
-                         f"ROADMAP §1 item 13)")
+        if ds.kind != "recurrent":
+            raise ValueError(f"backend='recurrent' on a {ds.kind!r}-state family")
+        return RecurrentBackend(model, n_lanes, max_len)
     if choice == "dense":
         return DenseBackend(model, n_lanes, max_len)
     raise ValueError(f"unknown backend {choice!r}")

@@ -17,12 +17,16 @@ every active lane one token per step, and finished lanes free at once
   content-addressed: full prompt blocks are shared copy-on-write across
   lanes, admission charges only unique blocks, and a fully-cached prompt
   skips its prefill dispatch outright.
+* **recurrent** (rwkv and zamba2, picked for them by default) -- one
+  constant-size state lane per slot; a preempted lane's state is copied to
+  the host and restored on resume, with no prefill dispatch.
 
 Prefill is **bucketed and batched**: prompts are right-padded to a small set
 of length buckets and several admissions share one batched-prefill call
 (exact for full-causal-attention configs, see
 :func:`repro_torch.models.lm.lm_prefill_padded`), whose per-lane caches are
-then pasted into their decode lanes.  Requests carrying extra model inputs
+then pasted into their decode lanes.  Requests carrying extra model inputs,
+and every request of a recurrent family (pad tokens would enter its state),
 take the exact-length per-request prefill.
 
 Sampling is per request (:class:`~repro_torch.serving.sampling.SamplingParams`),
@@ -69,8 +73,8 @@ class EngineConfig:
     sharing: identical prompt prefixes are admitted against the SAME
     physical blocks, and fully-cached prompts skip prefill.
 
-    ``backend`` forces a cache layout (``"dense" | "paged"``) instead of the
-    automatic choice -- chiefly for tests and A/B runs.
+    ``backend`` forces a cache layout (``"dense" | "paged" | "recurrent"``)
+    instead of the automatic choice -- chiefly for tests and A/B runs.
     """
     pad_id: int = 0
     kv_blocks: Optional[int] = None
@@ -98,6 +102,8 @@ class Request:
     # PRNG counter frozen at preemption so a stochastic request resumes on
     # exactly the sample stream it would have continued on
     saved_key: Optional[np.ndarray] = None
+    # backend state snapshot (recurrent lanes): resume without recompute
+    saved_state: Optional[dict] = None
     # (out_len, backend.state_version, value) -- memoized admission
     # footprint, so a queued request isn't re-hashed every engine step
     fp_memo: Optional[Tuple[int, int, int]] = None
@@ -228,12 +234,14 @@ class ServeEngine:
 
     def lane_cost(self, slot: int) -> Tuple[int, int]:
         """(recompute_tokens, footprint) of an active lane — the fleet's
-        cost-aware migration victim ordering.  Dense and paged lanes both
-        resume by a re-prefill of their full context."""
+        cost-aware migration victim ordering.  Backends whose snapshots
+        restore for free (recurrent) cost zero recompute; dense and paged
+        lanes resume by a re-prefill of their full context."""
         req = self.slots[slot]
         if req is None:
             raise ValueError(f"lane {slot} is idle: no cost to report")
-        return self._ctx_len(req), self._footprint(req)
+        recompute = 0 if self.backend.snapshot_free else self._ctx_len(req)
+        return recompute, self._footprint(req)
 
     def _prefill_tokens(self, req: Request) -> np.ndarray:
         """Tokens to prefill: the prompt, plus — after a preemption — every
@@ -367,13 +375,20 @@ class ServeEngine:
                 break
             held.append((req, res))
 
-        # split: full cache hits skip prefill wholly; the rest go through
-        # batched-bucketed or exact-length prefill
+        # split: snapshot restores and full cache hits skip prefill wholly;
+        # the rest go through batched-bucketed or exact-length prefill
         batched: List[Tuple[Request, Reservation]] = []
         fallback: List[Tuple[Request, Reservation]] = []
         for req, res in held:
             if res.n_lookup:
                 self.metrics.on_prefix_lookup(res.n_cached, res.n_lookup)
+            if req.saved_state is not None:
+                # restore() changes nothing when it declines, so the slot is
+                # only consumed on success
+                if self.backend.restore(free[0], req.saved_state):
+                    self._resume_lane(req, free.pop(0), now)
+                    continue
+                req.saved_state = None      # the backend can't use it: recompute
             if res.full_hit:
                 slot = free.pop(0)
                 self.backend.activate(slot, res, self._ctx_len(req))
@@ -420,9 +435,9 @@ class ServeEngine:
                 and self.scheduler.depth > 0)
 
     def _resume_lane(self, req: Request, slot: int, now: float) -> None:
-        """Place a request on a lane WITHOUT a prefill dispatch (full
-        prefix hit); its next token is produced by the next decode step,
-        which feeds the last context token."""
+        """Place a request on a lane WITHOUT a prefill dispatch (state
+        restore or full prefix hit); its next token is produced by the next
+        decode step, which feeds the lane's last token."""
         ls = self.lane_sampling
         ls.set_lane(slot, req.sampling)
         if req.saved_key is not None:
@@ -433,6 +448,7 @@ class ServeEngine:
             self.metrics.on_resume(req, now)
         req.admitted_t = now
         req.saved_key = None
+        req.saved_state = None
         self.slots[slot] = req
 
     # ------------------------------------------------------------------
@@ -448,8 +464,9 @@ class ServeEngine:
                                   self.slots[i].rid))
 
     def preempt(self, slot: int, requeue: bool = True) -> Request:
-        """Evict the lane, release its capacity, and requeue the request
-        (which resumes token-identically by recompute-prefill).
+        """Evict the lane: snapshot what the backend can save cheaply,
+        release its capacity, and requeue the request (which resumes
+        token-identically, by restore or by recompute-prefill).
 
         ``requeue=False`` returns the request WITHOUT putting it back on
         this engine's queue — the fleet hook for migrating a lane to
@@ -462,6 +479,7 @@ class ServeEngine:
             raise ValueError(f"lane {slot} is idle: nothing to preempt")
         req.preemptions += 1
         req.saved_key = self.lane_sampling.key[slot].copy()
+        req.saved_state = self.backend.snapshot(slot)
         self.backend.release(slot, tokens=self._cache_tokens(req))
         self.slots[slot] = None
         self.lane_sampling.clear_lane(slot)
@@ -473,16 +491,18 @@ class ServeEngine:
     def forget_lane(self, slot: int) -> Request:
         """Release a lane whose DEVICE is gone (worker death): free the
         host-side bookkeeping without touching device state.  Unlike
-        :meth:`preempt` it saves no sampling key (the lane's device is
-        unreachable) and registers no token content into the prefix cache
-        (K/V that died with the device must never be offered as a cache
-        hit).  Returns the request for the failover plane, which restores
-        ``saved_key`` from its last lane checkpoint before re-injecting it
-        elsewhere."""
+        :meth:`preempt` it saves no sampling key and no state snapshot (the
+        lane's device is unreachable), clears any saved state, and registers
+        no token content into the prefix cache (K/V that died with the
+        device must never be offered as a cache hit).  Returns the request
+        for the failover plane, which restores ``saved_key`` /
+        ``saved_state`` from its last lane checkpoint before re-injecting
+        it elsewhere."""
         req = self.slots[slot]
         if req is None:
             raise ValueError(f"lane {slot} is idle: nothing to forget")
         req.preemptions += 1
+        req.saved_state = None
         self.slots[slot] = None
         self.lane_sampling.clear_lane(slot)
         self.backend.release(slot)

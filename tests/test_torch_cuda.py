@@ -90,6 +90,8 @@ def test_rmsnorm_kernel(cuda_device, dtype, rows, d):
     (2, 130, 4, 4, 128, True, 0),       # H / G = 1
     (1, 200, 16, 4, 128, True, 0),      # H / G = 4
     (1, 100, 32, 4, 128, True, 0),      # H / G = 8: two 4-head groups a KV head
+    # zamba2's shared-block prefill as served: one request at its exact length
+    (1, 300, 32, 32, 112, True, 0), (1, 37, 32, 32, 112, True, 0),
 ])
 def test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk):
     t, tk = t if isinstance(t, tuple) else (t, t)   # (T, Tk) where they differ
@@ -106,7 +108,8 @@ def test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk):
                                           (3, 32, 8, 128, 300), (8, 32, 8, 128, 1024),
                                           (2, 8, 1, 64, 2000),
                                           (2, 32, 32, 112, 300),   # zamba2's shared block
-                                          (3, 16, 4, 112, 200)])   # head_dim 112, GQA
+                                          (3, 16, 4, 112, 200),    # head_dim 112, GQA
+                                          (8, 32, 32, 112, 1024)])  # zamba2-7b served
 def test_decode_kernel(cuda_device, dtype, b, h, g, d, span):
     gen = torch.Generator(device=cuda_device).manual_seed(span)
     q, ck, cv = _rand(gen, dtype, b, 1, h, d), _rand(gen, dtype, b, span, g, d), \
@@ -310,6 +313,8 @@ def _rwkv_inputs(gen, dtype, b, t, h, dk, min_log_decay):
     # 16, V halves of 32 (K 64) and 16 (K 32); odd head counts
     (1, 17, 3, 64, -0.5), (2, 63, 5, 64, -0.5), (1, 65, 3, 32, -0.5), (1, 500, 5, 32, -1.0),
     (2, 1, 5, 32, -0.5),
+    # rwkv6-1.6b's prefill as served: one request at its exact length
+    (1, 37, 32, 64, -0.5), (1, 63, 32, 64, -0.5), (1, 600, 32, 64, -0.05),
 ])
 def test_rwkv6_kernel(cuda_device, dtype, b, t, h, dk, min_log_decay):
     """Kernel against the plain chunked version: fp32 within 3e-5 of
@@ -494,6 +499,9 @@ def _ssd_inputs(gen, dtype, b, t, h, p, n, decay):
     (1, 17, 5, 64, 64, "reference"), (2, 63, 3, 64, 64, "reference"),
     (1, 65, 5, 64, 64, "reference"), (1, 500, 3, 64, 64, "reference"),
     (2, 65, 3, 32, 16, "reference"), (1, 17, 5, 32, 16, "strong"),
+    # zamba2-7b's prefill as served: one request at its exact length
+    (1, 37, 112, 64, 64, "reference"), (1, 63, 112, 64, 64, "reference"),
+    (1, 600, 112, 64, 64, "reference"),
 ])
 def test_ssd_kernel(cuda_device, dtype, b, t, h, p, n, decay):
     """Kernel against the plain chunked version (y and the final state):
@@ -573,3 +581,45 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda_device):
         kssd.mamba2_ssd_cuda(x, dt, a[:1], bm, cm, d)
     with pytest.raises(ValueError, match="CUDA"):
         kssd.mamba2_ssd_cuda(x, dt.cpu(), a, bm, cm, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_recurrent_serving_takes_the_scan_kernels_and_matches_the_cpu(cuda_device, arch):
+    """Reduced rwkv6 / zamba2, fp32: a prefill on the card launches the WKV6
+    or SSD kernel once a layer (flash once a shared-block firing), a decode
+    step no scan kernel (the decode kernel once a firing); logits and every
+    state leaf within 1e-4 x max(1, |ref|) of the CPU model's."""
+    import dataclasses
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.convert import move_params
+    from repro_torch.models.api import build_model
+    from repro_torch.models.blocks import n_attn_applications
+    from repro_torch.serving.backends import lane_leaves
+
+    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config(arch)), n_layers=4)
+    rcfg = tconfigs.RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
+    cpu, gpu = build_model(cfg, rcfg, device="cpu"), build_model(cfg, rcfg, device=cuda_device)
+    p_cpu = cpu.init(0)
+    p_gpu = move_params(p_cpu, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (1, 37), generator=torch.Generator().manual_seed(3))
+    scan = "rwkv6_scan" if cfg.rwkv else "mamba2_ssd"
+    n_attn = n_attn_applications(cfg)
+    with torch.no_grad():
+        l_c, c_c = cpu.prefill(p_cpu, {"tokens": toks}, 64)
+        ops.reset_launch_counts()
+        l_g, c_g = gpu.prefill(p_gpu, {"tokens": toks.to(cuda_device)}, 64)
+        assert ops.launch_counts()[scan] == cfg.n_layers
+        assert ops.launch_counts()["flash_attention"] == n_attn
+        nxt = torch.argmax(l_c, -1)[:, None]
+        l_c2, c_c2 = cpu.decode_step(p_cpu, c_c, nxt)
+        ops.reset_launch_counts()
+        l_g2, c_g2 = gpu.decode_step(p_gpu, c_g, nxt.to(cuda_device))
+        assert ops.launch_counts()[scan] == 0
+        assert ops.launch_counts()["decode_attention"] == n_attn
+    _assert_close(l_g.cpu(), l_c, torch.float32)
+    _assert_close(l_g2.cpu(), l_c2, torch.float32)
+    ref = lane_leaves(c_c2, 0)
+    for path, leaf in lane_leaves(c_g2, 0).items():
+        _assert_close(leaf.cpu().float(), ref[path].float(), torch.float32)

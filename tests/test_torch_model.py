@@ -175,9 +175,10 @@ def test_port_init_shapes_match_jax_and_are_seeded():
 
 
 def test_build_model_gates_unported_families_and_training():
-    """rwkv builds and trains, its serving entry points name the
-    recurrent-serving item; granite's loss is finite; moe and ssm still
-    raise naming their ROADMAP item."""
+    """rwkv builds, trains and serves: its prefill, decode step and cache
+    give finite logits and its recurrent state, with no batched prefill
+    and no pool; granite's loss is finite; moe and ssm still raise naming
+    their ROADMAP item."""
     _, tcfg = _cfgs()
     trc = tconfigs.RunConfig(param_dtype="float32", compute_dtype="float32")
     for kw in (dict(family="moe", n_experts=4, top_k=2), dict(family="ssm", ssm_state=16)):
@@ -185,12 +186,19 @@ def test_build_model_gates_unported_families_and_training():
             tbuild_model(dataclasses.replace(tcfg, **kw), trc, device="cpu")
     rwkv = tbuild_model(tconfigs.reduced_config(tconfigs.get_config("rwkv6-1.6b")), trc,
                         device="cpu")
-    assert rwkv.decode_state.kind == "recurrent" and not rwkv.decode_state.poolable
+    ds = rwkv.decode_state
+    assert ds.kind == "recurrent" and not ds.poolable and ds.batched_prefill is None
     toks = torch.as_tensor(_tokens(2, (2, 12)))
-    for call in (lambda: rwkv.prefill(rwkv.init(0), {"tokens": toks}, 16),
-                 lambda: rwkv.decode_step({}, {}, toks[:, :1]), lambda: rwkv.init_cache(2, 16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 13"):
-            call()
+    rp = rwkv.init(0)
+    with torch.no_grad():
+        logits, cache = rwkv.prefill(rp, {"tokens": toks}, 16)
+        logits2, cache2 = rwkv.decode_step(rp, cache, toks[:, :1])
+    assert logits.shape == logits2.shape == (2, 512) and torch.isfinite(logits2).all()
+    assert cache2["pos"].tolist() == [13, 13]
+    empty = rwkv.init_cache(2, 16)
+    assert set(empty["layers"]) == {"S", "last", "last_c"}
+    assert {k: tuple(v.shape) for k, v in empty["layers"].items()} == {
+        k: tuple(v.shape) for k, v in cache2["layers"].items()}
     model = tbuild_model(tcfg, trc, device="cpu")
     loss, aux = model.loss(model.init(0), {"tokens": toks})
     assert loss.shape == () and torch.isfinite(loss) and float(aux["aux"]) == 0.0

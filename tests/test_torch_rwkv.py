@@ -203,11 +203,11 @@ def test_tmix_and_cmix_match_jax(rwkv_params, uk):
     cfg, tcfg, p, tp = rwkv_params
     x = np.random.default_rng(9).standard_normal((2, 40, cfg.d_model)).astype(np.float32)
     jout, _ = jrwkv.apply_rwkv6_tmix(p, cfg, jnp.asarray(x), use_kernels=uk)
-    tout = trwkv.apply_rwkv6_tmix(tp, tcfg, torch.from_numpy(x))
-    assert _rel(tout, jout) < 1e-5
-    jc, _ = jrwkv.apply_rwkv6_cmix(p, cfg, jnp.asarray(x))
-    tc = trwkv.apply_rwkv6_cmix(tp, tcfg, torch.from_numpy(x))
-    assert _rel(tc, jc) < 1e-5
+    tout, tstate = trwkv.apply_rwkv6_tmix(tp, tcfg, torch.from_numpy(x))
+    assert _rel(tout, jout) < 1e-5 and tstate is None
+    jc, jlast = jrwkv.apply_rwkv6_cmix(p, cfg, jnp.asarray(x))
+    tc, tlast = trwkv.apply_rwkv6_cmix(tp, tcfg, torch.from_numpy(x))
+    assert _rel(tc, jc) < 1e-5 and _rel(tlast, jlast) == 0.0
 
 
 def test_init_matches_jax_shapes_and_dtypes():

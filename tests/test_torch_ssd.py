@@ -242,7 +242,7 @@ def test_apply_mamba2_matches_jax(mamba_params, uk):
     cfg, tcfg, p, tp = mamba_params
     x = np.random.default_rng(9).standard_normal((2, 70, cfg.d_model)).astype(np.float32)
     jout, _ = jssm.apply_mamba2(p, cfg, jnp.asarray(x), use_kernels=uk)
-    tout = tssm.apply_mamba2(tp, tcfg, torch.from_numpy(x))
+    tout, _ = tssm.apply_mamba2(tp, tcfg, torch.from_numpy(x))
     ref = np.asarray(jout)
     assert np.abs(tout.detach().numpy() - ref).max() <= BLOCK_TOL * max(1.0, np.abs(ref).max())
 

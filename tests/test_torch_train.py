@@ -201,15 +201,25 @@ def test_trainer_trajectory_matches_jax_launcher_step(tmp_path, arch, batch, seq
 
 
 def test_zamba2_serving_entry_points_name_recurrent_serving():
-    """zamba2 trains; its prefill, decode and cache raise naming ROADMAP
-    §1 item 13, and its decode state is recurrent, as rwkv6's."""
-    _, tmodel = _pair("zamba2-7b", 2, False)
-    assert tmodel.decode_state.kind == "recurrent" and not tmodel.decode_state.poolable
+    """zamba2 trains and serves, as rwkv6: its decode state is recurrent
+    (no pool, no batched prefill), and its prefill, decode step and cache
+    give the Mamba2 state and the shared block's K/V slots
+    (tests/test_torch_recurrent_engine.py holds them to the reference)."""
+    model, tmodel = _pair("zamba2-7b", 2, False)
+    ds = tmodel.decode_state
+    assert ds.kind == "recurrent" and not ds.poolable and ds.batched_prefill is None
     toks = torch.zeros((1, 4), dtype=torch.long)
-    for call in (lambda: tmodel.prefill(tmodel.init(0), {"tokens": toks}, 8),
-                 lambda: tmodel.decode_step({}, {}, toks[:, :1]), lambda: tmodel.init_cache(1, 8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 13"):
-            call()
+    tp = tmodel.init(0)
+    with torch.no_grad():
+        _, cache = tmodel.prefill(tp, {"tokens": toks}, 8)
+        logits, cache = tmodel.decode_step(tp, cache, toks[:, :1])
+    assert logits.shape == (1, 512) and torch.isfinite(logits).all()
+    assert cache["pos"].tolist() == [5]
+    empty = tmodel.init_cache(1, 8)
+    assert sorted(empty) == ["ak", "av", "layers", "pos"]
+    assert empty["ak"].shape == cache["ak"].shape == (1, 1, 8, 4, 32)   # one firing, 2 layers
+    written = cache["ak"][0, 0].abs().amax(dim=(1, 2))
+    assert bool((written[:5] > 0).all()) and float(written[5:].max()) == 0.0
 
 
 def test_params_from_jax_carries_the_shared_block():
