@@ -42,7 +42,27 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (full hits), on a pool small enough to preempt; the paged kernel runs 36
    times a decode step and the dense decode kernel never; the profile of an
    engine step at batch 16 gives the paged kernel's share;
-8. ``serve_rwkv`` and ``serve_hybrid``: rwkv6-1.6b (24 layers) and zamba2-7b
+8. ``serve_stages``: the same weights split into layer-range stages, all
+   on the card: a ``PipelineEngine`` (max_batch 8, max_len 1024) at the cut
+   ``plan_decode_split`` picks for an H100 and an iPhone 16, serving phase
+   6's 16 requests, recut after 6 steps to the plan for an H100 and two
+   iPhone 16s; its tokens equal a one-stage engine's bit for bit (every
+   lane preempted at the same step) and a ServeEngine's that prefills each
+   request alone at its exact length and preempts at the same step, and
+   both split and one-stage runs launch exactly the
+   unsplit model's kernels per prefill dispatch and decode step; each
+   kernel against its plain version at the stage shapes; tok/s, TTFT,
+   TPOT, each stage's decode wall, frames and bytes per boundary, the
+   recut's bytes and time, and the card's readings for the H100
+   ``DeviceProfile`` (a boundary frame's host round trip, decode steps and
+   prefill tokens a second);
+9. ``agent``: the paper's §4.3 tool loop on the same weights over the paged
+   pool with the prefix cache, a 100,000 x 384 vector DB behind 3 tool
+   workers at 0.5 s a search, async and sync tools, with a 0 and a
+   512-token scenario prefix: async tool wait under half of sync's, the
+   same tokens, prefix hits; each kernel against its plain version at the
+   agent's shapes;
+10. ``serve_rwkv`` and ``serve_hybrid``: rwkv6-1.6b (24 layers) and zamba2-7b
    (all 81 layers) at full width, bf16, random seeded weights, served over
    the recurrent backend with phase 6's engine and traffic, one lane
    preempted and resumed by restore (bit-equal to its snapshot); tok/s,
@@ -50,17 +70,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
    holds and the snapshot and restore times; then every kernel of the
    path against its plain version at the shapes it serves (B=1 prefills
    of 37 and 600 tokens, a decode step of 8 lanes over 1024 positions);
-9. ``parity_train``: reduced rwkv6, granite and zamba2 (4 layers, fp32),
+11. ``parity_train``: reduced rwkv6, granite and zamba2 (4 layers, fp32),
    and rwkv6-1.6b and zamba2-7b at full width cut to 2 layers, the same
    weights on the card (kernels, their gradients through the autograd
    wrappers) and on the CPU (plain versions): loss, every gradient leaf and
    the losses of 3 AdamW steps agree;
-10. ``train``: full-width rwkv6-1.6b (24 layers, bf16, random seeded
+12. ``train``: full-width rwkv6-1.6b (24 layers, bf16, random seeded
    weights) trained 20 steps through the launcher's ``Trainer``, step
    function and AdamW on 8 x 512-token ``TokenPipeline`` batches; one
    checkpoint written, restored and found bit-equal; step time, tok/s,
    MFU, peak memory and a profile of a step;
-11. ``train_hybrid``: zamba2-7b at full width cut to 42 layers (seven
+13. ``train_hybrid``: zamba2-7b at full width cut to 42 layers (seven
    periods of its shared block; the whole model's params, grads and
    moments do not fit one card), bf16, trained 10 steps the same way, no
    checkpoint; step time, tok/s, MFU, peak memory and a profile of a step
@@ -68,8 +88,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
-no paged one, a paged path flash, paged and RMSNorm kernels and no dense
-decode one, a recurrent serving path exactly its prefill dispatches' and
+no paged one, a paged path (the agent's too) flash, paged and RMSNorm
+kernels and no dense decode one, a stage path exactly the unsplit model's
+launches of its prefill dispatches and decode steps, a recurrent serving path exactly its prefill dispatches' and
 decode steps' launches (a prefill: the WKV6 or SSD kernel once a layer,
 flash once a zamba2 shared-block firing; a decode step: the decode kernel
 once a firing and no scan kernel; RMSNorm in both), the rwkv6 training
@@ -127,7 +148,9 @@ MODEL_TOL = 1e-4
 BF16_MODEL_TOL = 0.25
 
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
-          "serve_rwkv", "serve_hybrid", "train", "train_hybrid")
+          "serve_stages", "agent", "serve_rwkv", "serve_hybrid", "train", "train_hybrid")
+# the phases that serve full-width granite-8b, one set of weights between them
+GRANITE_PHASES = ("serve", "serve_paged", "serve_stages", "agent")
 OPT_IN = ("lr_probe", "baseline")
 
 # the kernels each serving path must launch; the other decode kernel must not
@@ -1041,7 +1064,8 @@ def check_served_kernels(tag: str, drive, want: dict) -> dict:
     held at the shapes, strides and values the served path gives it: a bf16
     output within BF16_TOL x max(1, |ref|) elementwise, an fp32 one (the
     SSD's final state) within SCAN_F32_TOL x max|ref|.  ``want``: the calls
-    by kernel that ``drive`` must make.  Returns, by kernel, the calls, the
+    by kernel that ``drive`` must make (or a function that gives them once
+    ``drive`` has run).  Returns, by kernel, the calls, the
     shapes of their first two inputs and the worst margin (error / limit)."""
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kfa
@@ -1086,6 +1110,8 @@ def check_served_kernels(tag: str, drive, want: dict) -> dict:
         for name, (mod, attr, _) in pairs.items():
             setattr(mod, attr, originals[name])
     calls = {name: rec["calls"] for name, rec in seen.items()}
+    if callable(want):
+        want = want()
     if calls != want:
         raise AssertionError(f"{tag} served-shape check: calls {calls}, expected {want}")
     check_gates(f"{tag} served shapes", {name: rec["margin"] for name, rec in seen.items()
@@ -1179,7 +1205,7 @@ def recurrent_parity(arch: str, dtype: str, n_layers: int = 4) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 6-8: full-width serving through ServeEngine
+# phases 6-7: full-width granite-8b served through ServeEngine
 # ---------------------------------------------------------------------------
 
 def full_width_model(n_layers: int = 0):
@@ -1383,6 +1409,367 @@ def phase_serve_paged(results: dict, model, params) -> None:
             raise AssertionError(f"{eng.active()} of {max_batch} lanes busy")
         profile_step(eng.step, f"paged engine step, batch {max_batch}, 612 positions a lane",
                      share="PagedLayout")
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: the stage plane and the agentic tool loop on granite-8b
+# (phase 10, recurrent serving, follows them)
+# ---------------------------------------------------------------------------
+
+def unsplit_launches(model, params, prompt: np.ndarray, max_batch: int, max_len: int) -> tuple:
+    """Launches by kernel of one B=1 exact-length prefill of ``prompt`` and
+    of one decode step of ``max_batch`` dense lanes, by the unsplit model."""
+    from repro_torch.kernels import ops
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        model.prefill(params, {"tokens": torch.as_tensor(prompt[None], device=model.device)},
+                      max_len)
+        per_prefill = ops.launch_counts()
+        cache = model.init_cache(max_batch, max_len)
+        ops.reset_launch_counts()
+        model.decode_step(params, cache, torch.zeros((max_batch, 1), dtype=torch.int64,
+                                                     device=model.device))
+        per_step = ops.launch_counts()
+    return per_prefill, per_step
+
+
+def drive_stages(eng, prompts, max_new: int, recut_to) -> dict:
+    """Serve ``prompts`` on PipelineEngine ``eng`` (after a warm-up request):
+    6 steps, then ``recut_to`` (or, for None, every lane preempted), then
+    drain; the run's tokens, step reports either side of the cut, launches,
+    wall time and the cut's bytes and seconds."""
+    from repro_torch.kernels import ops
+    eng.submit(prompts[0][:20], max_new=4)                         # warm-up
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    eng.reset_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p, max_new=max_new)
+    before = [eng.step_paced() for _ in range(6)]
+    t_cut = time.perf_counter()
+    if recut_to is None:
+        moved = 0
+        for slot, req in enumerate(eng.slots):
+            if req is not None:
+                eng.preempt(slot)
+    else:
+        moved = eng.recut(recut_to)
+    cut_s = time.perf_counter() - t_cut
+    after = []
+    while eng.active() or eng.scheduler.depth:
+        after.append(eng.step_paced())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens={r.rid: r.out_tokens for r in eng.finished}, before=before, after=after,
+                counts=ops.launch_counts(), wall=wall, moved=moved, cut_s=cut_s,
+                snap=eng.metrics_snapshot())
+
+
+def drive_exact_serve(model, params, prompts, max_new: int, max_batch: int,
+                      max_len: int) -> dict:
+    """The split's witness outside PipelineEngine: a ServeEngine with a
+    prefill bucket for every length and one request a dispatch (each
+    request prefilled alone at its exact length, as a stage prefills it),
+    the same warm-up, 6 steps, then every lane preempted, as the recut
+    preempts them; the same functions on the same shapes as the one-stage
+    PipelineEngine.  Its tokens by rid."""
+    from repro_torch.serving.engine import ServeEngine
+    eng = ServeEngine(model, params, max_batch=max_batch, max_len=max_len,
+                      prefill_buckets=range(1, max_len + 1), max_prefill_batch=1)
+    eng.submit(prompts[0][:20], max_new=4)                         # warm-up
+    eng.run_until_drained()
+    eng.reset_stats()
+    for p in prompts:
+        eng.submit(p, max_new=max_new)
+    for _ in range(6):
+        eng.step()
+    for slot, req in enumerate(eng.slots):
+        if req is not None:
+            eng.preempt(slot)
+    return {r.rid: r.out_tokens for r in eng.run_until_drained()}
+
+
+def wire_summary(reports: list, n_boundaries: int) -> str:
+    """Frames and bytes per boundary, prefill and decode, and the mean
+    decode wall of each stage, over ``reports``."""
+    steps = [r for r in reports if r is not None and r.decode_step]
+    admissions = sum(r.admissions for r in reports if r is not None)
+    parts = []
+    for i in range(n_boundaries):
+        pb = sum(r.prefill_frame_bytes[i] for r in reports if r is not None)
+        db = sum(r.decode_frame_bytes[i] for r in steps)
+        parts.append(f"boundary {i}: prefill {admissions} frames {pb} B, decode {len(steps)} "
+                     f"frames {db} B ({db // max(1, len(steps))} B a frame)")
+    walls = [1e3 * sum(r.decode_stage_wall_s[i] for r in steps) / max(1, len(steps))
+             for i in range(n_boundaries + 1)]
+    parts.append("decode wall a step by stage " + ", ".join(f"{w:.3f}" for w in walls) + " ms")
+    return "; ".join(parts)
+
+
+def phase_serve_stages(results: dict, model, params, n_requests: int = 16,
+                       max_new: int = 32) -> None:
+    """granite-8b split into layer-range stages, every stage on the card:
+    a PipelineEngine (max_batch 8, max_len 1024) at the cut
+    ``plan_decode_split`` picks for [H100, IPHONE_16], serving the dense
+    serve phase's 16 greedy requests (16-600 prompt tokens, max_new 32);
+    after 6 steps it is recut to the plan for [H100, IPHONE_16, IPHONE_16].
+    Gates: its tokens equal a one-stage PipelineEngine's (cuts ``()``, every
+    lane preempted at the same step) bit for bit, and those of a ServeEngine
+    that prefills each request alone at its exact length and preempts at
+    the same step (:func:`drive_exact_serve`: an engine apart, over the
+    same functions on the same shapes); both PipelineEngine runs launch
+    exactly the unsplit model's kernels per prefill dispatch and per
+    decode step.
+    Then each kernel against its plain version at the stage shapes (B=1
+    stage prefills of 37 and 600 tokens, a full-batch stage decode step),
+    and the card's readings for the H100 profile: a boundary frame's host
+    round trip, decode steps a second at batch 8, prefill tokens a second."""
+    from repro_torch.hw.specs import H100, IPHONE_16
+    from repro_torch.models.api import param_bytes
+    from repro_torch.serving.pipeline_decode import PipelineEngine, plan_decode_split
+    from repro_torch.wire import codec
+    tag = "[serve-stages]"
+    cfg = model.cfg
+    max_batch, max_len = 8, 1024
+    plans = [plan_decode_split(model, params, devs, max_batch=max_batch, max_len=max_len)
+             for devs in ([H100, IPHONE_16], [H100, IPHONE_16, IPHONE_16])]
+    for plan, what in zip(plans, ("H100 + iPhone 16", "H100 + 2 x iPhone 16")):
+        log(f"{tag} plan for {what}: cuts {plan.cuts}, stage memory "
+            f"{[round(m / 1e9, 3) for m in plan.stage_mem_bytes]} GB (fits {plan.fits}), "
+            f"predicted step {plan.step_seconds * 1e3:.3f} ms (stages "
+            f"{[round(s * 1e3, 3) for s in plan.stage_seconds]}, links "
+            f"{[round(s * 1e3, 4) for s in plan.comm_seconds]} ms)")
+        if not plan.feasible:
+            raise AssertionError(f"{tag} no feasible cut for {what}")
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, size=20)          # the dense serve's warm-up draw
+    lengths = np.linspace(16, 600, n_requests).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
+    per_prefill, per_step = unsplit_launches(model, params, prompts[0], max_batch, max_len)
+    runs = {}
+    with torch.no_grad():
+        for name, cuts, recut_to in (("split", plans[0].cuts, plans[1].cuts),
+                                     ("one-stage", (), None)):
+            eng = PipelineEngine(model, params, max_batch=max_batch, max_len=max_len, cuts=cuts)
+            bytes_before = eng.stage_param_bytes
+            runs[name] = dict(drive_stages(eng, prompts, max_new, recut_to), eng=eng,
+                              bytes_before=bytes_before, bytes_after=eng.stage_param_bytes)
+        witness = drive_exact_serve(model, params, prompts, max_new, max_batch, max_len)
+    split, one = runs["split"], runs["one-stage"]
+    eng = split["eng"]
+    done = split["tokens"]
+    if len(done) != n_requests or any(len(t) != max_new for t in done.values()):
+        raise AssertionError(f"{tag}: {len(done)}/{n_requests} requests finished with "
+                             f"{[len(t) for t in done.values()]} tokens")
+    if any(not 0 <= t < cfg.vocab_size for ts in done.values() for t in ts):
+        raise AssertionError(f"{tag}: a generated token lies outside the vocabulary")
+    if done != one["tokens"]:
+        diff = sum(a != b for rid in done for a, b in zip(done[rid], one["tokens"][rid]))
+        raise AssertionError(f"{tag}: the split's tokens differ from the one-stage engine's "
+                             f"at {diff} positions")
+    if done != witness:
+        diff = sum(a != b for rid in done for a, b in zip(done[rid], witness.get(rid, [])))
+        raise AssertionError(f"{tag}: the split's tokens differ from the exact-length "
+                             f"ServeEngine's at {diff} positions (rids {sorted(done)} against "
+                             f"{sorted(witness)})")
+    for name, run in runs.items():
+        snap = run["snap"]
+        want = {k: per_prefill[k] * snap.prefill_dispatches + per_step[k] * snap.steps
+                for k in per_prefill}
+        check_launches(run["counts"], want, f"{tag} {name} run of {snap.prefill_dispatches} "
+                                            f"prefill dispatches and {snap.steps} decode steps")
+    snap = split["snap"]
+    gen_tokens = sum(len(t) for t in done.values())
+    log(f"{tag} granite-8b, cuts {plans[0].cuts} then {plans[1].cuts} after 6 steps, every "
+        f"stage on the card: {n_requests} requests, prompts {int(lengths.min())}-"
+        f"{int(lengths.max())} tokens, max_new {max_new}: {gen_tokens} tokens in "
+        f"{split['wall']:.3f} s = {gen_tokens / split['wall']:.1f} tok/s (one stage: "
+        f"{gen_tokens / one['wall']:.1f}); {snap.prefill_dispatches} prefill dispatches, "
+        f"{snap.steps} decode steps; tokens bit-equal to the one-stage engine's and to an "
+        f"exact-length ServeEngine's preempted at the same step")
+    log(f"{tag} TTFT mean {snap.ttft.mean * 1e3:.1f} ms p95 {snap.ttft.p95 * 1e3:.1f} ms; TPOT "
+        f"mean {snap.tpot.mean * 1e3:.2f} ms (one stage: TTFT {one['snap'].ttft.mean * 1e3:.1f} "
+        f"ms, TPOT {one['snap'].tpot.mean * 1e3:.2f} ms)")
+    log(f"{tag} param bytes by stage {list(split['bytes_before'])} then "
+        f"{list(split['bytes_after'])} (the unsplit tree {param_bytes(params)}); the recut "
+        f"moved {split['moved']} B of layers in {split['cut_s'] * 1e3:.3f} ms (preempting "
+        f"{sum(r.preemptions for r in eng.finished)} lanes and building the stages)")
+    log(f"{tag} 2 stages: " + wire_summary(split["before"], 1))
+    log(f"{tag} 3 stages: " + wire_summary(split["after"], 2))
+    log(f"{tag} one stage: " + wire_summary(one["before"] + one["after"], 0))
+    log(f"{tag} launches a prefill dispatch {per_prefill}, a decode step {per_step}, split and "
+        f"unsplit alike; the run's {split['counts']}")
+
+    # every kernel at the stage shapes: two B=1 stage prefills and a
+    # full-batch stage decode step through the 3 stages, against the plain
+    # versions on the same inputs
+    long_prompt = torch.as_tensor(prompts[-1][None], device=model.device)
+    toks = np.zeros((max_batch, 1), np.int32)
+    active = np.ones((max_batch,), bool)
+
+    def drive():
+        for toks_in in (long_prompt[:, :37], long_prompt):
+            x = toks_in
+            for i, st in enumerate(eng.stages):
+                x, _ = st.prefill(st.params, {"tokens": x} if i == 0 else {"hidden": x})
+        x = toks
+        for st in eng.stages:
+            x = st.backend.step(st.params, x, active)
+    with torch.no_grad():
+        served = check_served_kernels(tag, drive, {k: 2 * per_prefill[k] + per_step[k]
+                                                   for k in per_prefill})
+    log(f"{tag} kernels at the stage shapes (B=1 prefills of 37 and {long_prompt.shape[1]} "
+        f"tokens, a decode step of {max_batch} lanes over {max_len} positions, through "
+        f"{eng.n_stages} stages) against their plain versions, worst margin (error / limit): "
+        + "; ".join(f"{k} {v['calls']} calls, first two inputs {v['shapes']}, "
+                    f"{v['margin']:.3f}" for k, v in served.items()))
+    for name, rec in served.items():
+        entry = results.setdefault(name, {"name": name})
+        entry.setdefault("served_shapes", {})["stages"] = dict(
+            rec, shapes=[[list(d) for d in s] for s in rec["shapes"]])
+
+    # the card's readings for the H100 DeviceProfile
+    frame = torch.randn((max_batch, 1, cfg.d_model), device=model.device).to(torch.bfloat16)
+    frame_bytes = len(codec.dumps(frame))
+    reps = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        back = codec.loads(codec.dumps(frame)).to(model.device)
+    torch.cuda.synchronize()
+    trip_s = (time.perf_counter() - t0) / reps
+    if not torch.equal(back, frame):
+        raise AssertionError(f"{tag}: a boundary frame changed in its round trip")
+    hidden = torch.randn((1, long_prompt.shape[1], cfg.d_model),
+                         device=model.device).to(torch.bfloat16)
+    hidden_bytes = len(codec.dumps(hidden))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        back = codec.loads(codec.dumps(hidden)).to(model.device)
+    torch.cuda.synchronize()
+    hidden_s = (time.perf_counter() - t0) / 20
+    st1 = one["eng"].stages[0]
+    with torch.no_grad():
+        step_ms = sync_time_ms([lambda: st1.backend.step(st1.params, toks, active)], iters=10,
+                               warmup=2)
+        prefill_ms = sync_time_ms([lambda: st1.prefill(st1.params, {"tokens": long_prompt})],
+                                  iters=5, warmup=1)
+    log(f"{tag} H100 profile readings: a {frame_bytes} B boundary frame's host round trip "
+        f"{trip_s * 1e3:.4f} ms = link_bw {frame_bytes / trip_s:.4e} B/s (host clock, {reps} "
+        f"trips); decode step at batch {max_batch} over {max_len} positions {step_ms:.3f} ms "
+        f"= decode_steps_per_s {1e3 / step_ms:.2f}; B=1 prefill of {long_prompt.shape[1]} "
+        f"tokens {prefill_ms:.3f} ms = prefill_tokens_per_s "
+        f"{long_prompt.shape[1] / prefill_ms * 1e3:.1f} (CUDA events); a prefill frame of "
+        f"{long_prompt.shape[1]} tokens ({hidden_bytes} B) {hidden_s * 1e3:.3f} ms = "
+        f"{hidden_bytes / hidden_s:.4e} B/s (host clock, 20 trips)")
+    add_launches(results, split["counts"], "stages")
+
+
+def phase_agent(results: dict, model, params) -> None:
+    """The paper's §4.3 agent scenario on granite-8b over the paged pool with
+    the prefix cache (max_batch 4, max_len 1024, 256 blocks of 16): the
+    launcher's three queries against ``VectorDB(n_docs=100_000, dim=384)``
+    behind ``ToolExecutor(n_workers=3)`` at 0.5 s a search, run with async
+    tools and sync, with a 0 and a 512-token scenario prefix, each on a
+    fresh engine.  Gates: the paged path's kernels and no dense decode
+    launch; async tool wait under 0.5 x sync's; the same tokens async and
+    sync; prefix hits with the prefix.  Then each kernel against its plain
+    version at the agent's shapes (one turn behind the prefix)."""
+    from repro_torch.kernels import ops
+    from repro_torch.offload.tools import ToolExecutor
+    from repro_torch.offload.vectordb import VectorDB
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.tool_loop import run_scenario
+    tag = "[agent]"
+    t0 = time.perf_counter()
+    db = VectorDB(n_docs=100_000, dim=384)
+    log(f"{tag} VectorDB {db.embeddings.shape} fp32, {db.embeddings.nbytes / 1e6:.1f} MB on the "
+        f"host, built in {time.perf_counter() - t0:.2f} s")
+    queries = ["google search engine", "apple ipod", "microsoft windows"]
+    config = EngineConfig(kv_blocks=256, kv_block_size=16, prefix_cache=True)
+    max_batch, max_len = 4, 1024
+
+    def engine():
+        return ServeEngine(model, params, max_batch=max_batch, max_len=max_len, config=config)
+
+    def executor():
+        ex = ToolExecutor(n_workers=3)
+        ex.register("vector_db_begin_search", lambda query, k: db.search_text(query, int(k)),
+                    simulated_seconds=0.5)
+        return ex
+
+    with torch.no_grad():
+        warm = engine()
+        warm.submit(np.arange(20), max_new=4)
+        warm.run_until_drained()
+        del warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        runs = {}
+        for prefix in (0, 512):
+            for async_tools in (True, False):
+                eng, ex = engine(), executor()
+                tr = run_scenario(eng, ex, queries, async_tools=async_tools,
+                                  prefix_tokens=prefix)
+                ex.shutdown()
+                runs[prefix, async_tools] = (tr, [r.out_tokens for r in eng.finished],
+                                             eng.metrics_snapshot(), eng.steps)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    check_path(counts, PAGED_PATH, "agent runs")
+    for (prefix, async_tools), (tr, toks, snap, steps) in runs.items():
+        mode = "async" if async_tools else "sync"
+        log(f"{tag} prefix {prefix}, {mode} tools: total {tr.total:.3f} s, tool wait "
+            f"{tr.time_in('tool_wait'):.3f} s, reason {tr.time_in('reason'):.3f} s, summarize "
+            f"{tr.time_in('summarize'):.3f} s; {sum(len(t) for t in toks)} tokens in "
+            f"{snap.prefill_dispatches} prefill dispatches and {steps} decode steps; prefix hits "
+            f"{snap.prefix_hit_tokens} of {snap.prefix_query_tokens} prompt tokens "
+            f"({snap.prefill_skipped} full hits)")
+        log(f"{tag}   timeline: " + "; ".join(
+            f"{s['kind']} {s['start']:.3f}-{s['end']:.3f}" for s in tr.timeline()))
+    for prefix in (0, 512):
+        (a, a_toks, a_snap, _), (s, s_toks, _, _) = runs[prefix, True], runs[prefix, False]
+        if not a.time_in("tool_wait") < 0.5 * s.time_in("tool_wait"):
+            raise AssertionError(f"{tag} prefix {prefix}: async tool wait "
+                                 f"{a.time_in('tool_wait'):.3f} s, not under 0.5 x sync's "
+                                 f"{s.time_in('tool_wait'):.3f} s")
+        if a_toks != s_toks or [len(t) for t in a_toks] != [12, 24, 24, 24]:
+            raise AssertionError(f"{tag} prefix {prefix}: async tokens {a_toks} vs sync "
+                                 f"{s_toks}")
+        if prefix and a_snap.prefix_hit_tokens < 3 * prefix:
+            raise AssertionError(f"{tag}: {a_snap.prefix_hit_tokens} prefix hit tokens behind "
+                                 f"a {prefix}-token prefix over 4 turns")
+    log(f"{tag} launches on the agent path: {counts}")
+
+    # every kernel at the agent's shapes: one turn behind the 512-token prefix
+    turn = np.random.default_rng(1).integers(0, model.cfg.vocab_size, size=520)
+    per_prefill, per_step = unsplit_launches(model, params, turn, max_batch, max_len)
+    per_step = dict(per_step, decode_attention=0,
+                    paged_decode_attention=per_step["decode_attention"])
+    eng = engine()
+
+    def drive():
+        eng.submit(turn, max_new=8)
+        eng.run_until_drained()
+
+    def want():
+        snap = eng.metrics_snapshot()
+        return {k: per_prefill[k] * snap.prefill_dispatches + per_step[k] * eng.steps
+                for k in per_prefill}
+    with torch.no_grad():
+        served = check_served_kernels(tag, drive, want)
+    log(f"{tag} kernels at the agent's shapes (a B=1 prefill of 520 tokens, decode over the "
+        f"paged pool) against their plain versions, worst margin (error / limit): "
+        + "; ".join(f"{k} {v['calls']} calls, first two inputs {v['shapes']}, "
+                    f"{v['margin']:.3f}" for k, v in served.items()))
+    for name, rec in served.items():
+        entry = results.setdefault(name, {"name": name})
+        entry.setdefault("served_shapes", {})["agent"] = dict(
+            rec, shapes=[[list(d) for d in s] for s in rec["shapes"]])
+    add_launches(results, counts, "agent")
 
 
 def phase_serve_recurrent(results: dict, arch: str, path: str, n_requests: int = 16,
@@ -1617,7 +2004,7 @@ def profile_step(fn, what: str, top: int = 8, reps: int = 3, spans: tuple = (),
 
 
 # ---------------------------------------------------------------------------
-# phases 9-11: training, card vs CPU, full-width rwkv6-1.6b and zamba2-7b
+# phases 11-13: training, card vs CPU, full-width rwkv6-1.6b and zamba2-7b
 # ---------------------------------------------------------------------------
 
 def _loss_and_grads(model, params, tokens):
@@ -2277,12 +2664,16 @@ def main(argv=None) -> int:
         phase_parity_bf16()
     if "parity_train" in phases:
         phase_parity_train()
-    full = None
+    full = full_width_model() if any(p in phases for p in GRANITE_PHASES) else None
     if "serve" in phases:
-        full = full_width_model()
         phase_serve(results, *full)
     if "serve_paged" in phases:
-        phase_serve_paged(results, *(full or full_width_model()))
+        phase_serve_paged(results, *full)
+    if "serve_stages" in phases:
+        phase_serve_stages(results, *full)
+        torch.cuda.empty_cache()
+    if "agent" in phases:
+        phase_agent(results, *full)
     del full
     torch.cuda.empty_cache()
     if "serve_rwkv" in phases:

@@ -26,6 +26,11 @@ prefill and the block pool are the dense family's.
 Decode writes each step's K/V, or each layer's new recurrent state, into
 the cache IN PLACE (the reference donates the buffers to jit instead) and
 returns a cache dict with the advanced ``pos``.
+
+The dense family also runs as a layer-split model: :func:`lm_stage_prefill`
+and :func:`lm_stage_decode_step` run one stage's layer range; the full
+model's :func:`lm_prefill` and dense :func:`lm_decode_step` are their
+one-stage case, so a cut changes nothing but where the layer loop pauses.
 """
 
 from __future__ import annotations
@@ -119,18 +124,16 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     return ce, {"ce": ce, "aux": aux}
 
 
-def _prefill_trunk(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
-                   rcfg: RunConfig, max_len: int) -> Tuple[torch.Tensor, dict]:
-    """Prompt forward: (hidden (B,T,D) after the final norm, the cache:
-    every layer's content, zamba2's ``ak``/``av``, ``pos`` still 0)."""
-    cdt = dtype_of(rcfg.compute_dtype)
-    tokens = batch["tokens"]
-    bsz, t = tokens.shape
-    x = embed_tokens(params["embed"], tokens, cdt)
+def _prefill_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                    max_len: int) -> Tuple[torch.Tensor, dict]:
+    """Every layer of ``params["blocks"]`` over the residual stream ``x``
+    (B,T,D): (x after the last of them, the cache: every layer's content,
+    zamba2's ``ak``/``av``, ``pos`` still 0)."""
+    bsz, t = x.shape[:2]
     span = cache_span(cfg, max_len)
-    rope = None if cfg.rwkv else rope_tables(torch.arange(t, device=tokens.device)[None, :],
+    rope = None if cfg.rwkv else rope_tables(torch.arange(t, device=x.device)[None, :],
                                               cfg.head_dim, cfg.rope_theta)
-    cache = init_cache(cfg, bsz, max_len, cdt, tokens.device)
+    cache = init_cache(cfg, bsz, max_len, x.dtype, x.device)
     shared = params.get("shared")
     for i, bp in enumerate(params["blocks"]):
         x, cl = B.block_prefill(cfg, bp, x, rope, span)
@@ -138,16 +141,37 @@ def _prefill_trunk(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor
             cache["layers"][name][i].copy_(leaf)
         if shared is not None:
             x = B.shared_attn_prefill(cfg, shared, x, i, rope, cache["ak"], cache["av"])
-    return rmsnorm(params["final_ln"], x), cache
+    return x, cache
+
+
+def lm_stage_prefill(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
+                     rcfg: RunConfig, max_len: int, *, first: bool = True,
+                     last: bool = True) -> Tuple[torch.Tensor, dict]:
+    """Prefill ONE stage of a layer-split model (paper §4.1 topology); the
+    full model is the one stage that is first and last (:func:`lm_prefill`).
+
+    ``cfg.n_layers`` is the STAGE's layer count and ``params["blocks"]``
+    holds only those layers (:func:`repro_torch.models.api.split_stage_params`).
+    The first stage embeds ``batch["tokens"]``; later stages continue the
+    residual stream from ``batch["hidden"]``, the boundary activation the
+    previous stage shipped.  Non-last stages return the FULL hidden
+    sequence (B, T, D) so the next stage can prefill from it; the last
+    stage returns last-token logits.  A cut only pauses the full model's
+    layer loop, so the stages composed are bit-identical to it."""
+    cdt = dtype_of(rcfg.compute_dtype)
+    x = (embed_tokens(params["embed"], batch["tokens"], cdt) if first
+         else batch["hidden"].to(cdt))
+    x, cache = _prefill_layers(cfg, params, x, max_len)
+    cache["pos"].fill_(x.shape[1])
+    if last:
+        return head_logits(cfg, params, rmsnorm(params["final_ln"], x)[:, -1]), cache
+    return x, cache
 
 
 def lm_prefill(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                rcfg: RunConfig, max_len: int) -> Tuple[torch.Tensor, dict]:
     """Process a prompt; return (last-token logits (B, Vp), cache)."""
-    x, cache = _prefill_trunk(cfg, params, batch, rcfg, max_len)
-    logits = head_logits(cfg, params, x[:, -1])
-    cache["pos"].fill_(x.shape[1])
-    return logits, cache
+    return lm_stage_prefill(cfg, params, batch, rcfg, max_len)
 
 
 def lm_prefill_padded(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
@@ -160,11 +184,36 @@ def lm_prefill_padded(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Ten
     are gathered at each lane's last real position, and the per-lane cache
     ``pos`` masks the pad garbage out of decode until the step that
     overwrites it."""
-    x, cache = _prefill_trunk(cfg, params, batch, rcfg, max_len)
+    x = embed_tokens(params["embed"], batch["tokens"], dtype_of(rcfg.compute_dtype))
+    x, cache = _prefill_layers(cfg, params, x, max_len)
+    x = rmsnorm(params["final_ln"], x)
     h = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1]
     logits = head_logits(cfg, params, h)
     cache["pos"].copy_(lengths)
     return logits, cache
+
+
+def lm_stage_decode_step(cfg: ModelConfig, params: dict, cache: dict, x_in: torch.Tensor,
+                         rcfg: RunConfig, *, first: bool = True,
+                         last: bool = True) -> Tuple[torch.Tensor, dict]:
+    """One decode step of ONE stage over dense K/V lanes; the full dense
+    model is the one stage that is first and last (:func:`lm_decode_step`).
+    ``x_in`` is tokens (B, 1) int on the first stage, the previous stage's
+    boundary activations (B, 1, D) otherwise.  Returns last-token logits on
+    the last stage, the boundary hidden (B, 1, D) to ship onward everywhere
+    else; the K/V of ``cache["layers"]`` are written in place."""
+    cdt = dtype_of(rcfg.compute_dtype)
+    x = embed_tokens(params["embed"], x_in, cdt) if first else x_in.to(cdt)
+    pos = cache["pos"]
+    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    rows, valid = decode_slots(cfg, pos, ks.shape[2])
+    for i, bp in enumerate(params["blocks"]):
+        x = B.block_decode(cfg, bp, x, ks[i], vs[i], rope, rows, valid)
+    cache = {"layers": cache["layers"], "pos": pos + 1}
+    if last:
+        return head_logits(cfg, params, rmsnorm(params["final_ln"], x)[:, -1]), cache
+    return x, cache
 
 
 def lm_decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
@@ -174,17 +223,7 @@ def lm_decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Te
     ``ak``/``av``) are updated in place."""
     if B.is_recurrent(cfg):
         return _decode_step_recurrent(cfg, params, cache, tokens, rcfg)
-    cdt = dtype_of(rcfg.compute_dtype)
-    x = embed_tokens(params["embed"], tokens, cdt)
-    pos = cache["pos"]
-    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
-    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    rows, valid = decode_slots(cfg, pos, ks.shape[2])
-    for i, bp in enumerate(params["blocks"]):
-        x = B.block_decode(cfg, bp, x, ks[i], vs[i], rope, rows, valid)
-    x = rmsnorm(params["final_ln"], x)
-    logits = head_logits(cfg, params, x[:, -1])
-    return logits, {"layers": cache["layers"], "pos": pos + 1}
+    return lm_stage_decode_step(cfg, params, cache, tokens, rcfg)
 
 
 def _decode_step_recurrent(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,

@@ -187,10 +187,16 @@ class DenseBackend(CacheBackend):
     def prepare_lane(self, slot: int) -> bool:
         return True
 
-    def step(self, params, tokens: np.ndarray, active: np.ndarray) -> torch.Tensor:
-        toks = torch.as_tensor(tokens, dtype=torch.int64).to(self.model.device)
-        logits, self.cache = self.model.decode_step(params, self.cache, toks)
-        return logits
+    def step(self, params, tokens, active: np.ndarray) -> torch.Tensor:
+        """One decode step of every lane.  ``tokens`` is (B, 1) token ids, or
+        on a stage after the first of a layer-split model the boundary
+        hidden (B, 1, D): ids are cast to int64, floating inputs pass as
+        they are; both go to the model's device."""
+        x = torch.as_tensor(tokens)
+        if not x.is_floating_point():
+            x = x.to(torch.int64)
+        out, self.cache = self.model.decode_step(params, self.cache, x.to(self.model.device))
+        return out
 
     def release(self, slot: int, tokens: Optional[Sequence[int]] = None) -> None:
         pass                 # lane garbage is overwritten by the next paste

@@ -623,3 +623,84 @@ def test_recurrent_serving_takes_the_scan_kernels_and_matches_the_cpu(cuda_devic
     ref = lane_leaves(c_c2, 0)
     for path, leaf in lane_leaves(c_g2, 0).items():
         _assert_close(leaf.cpu().float(), ref[path].float(), torch.float32)
+
+
+def _reduced_granite(dtype, device, n_layers=4):
+    import dataclasses
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("granite-8b")),
+                              n_layers=n_layers)
+    rcfg = tconfigs.RunConfig(param_dtype=dtype, compute_dtype=dtype, remat=False)
+    return build_model(cfg, rcfg, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cuts", [(2,), (1, 3)], ids=str)
+def test_stage_composition_on_the_card_equals_the_full_model(cuda_device, dtype, cuts):
+    """Layer-range stages composed through a codec round trip of the
+    boundary hidden are bit-identical to the card's full model: prefill
+    logits and two decode steps at B=2, the same kernels on the same shapes;
+    a cut adds no kernel launch."""
+    from repro_torch.models.api import split_stage_params, stage_model
+    from repro_torch.wire import codec
+
+    model = _reduced_granite(dtype, cuda_device)
+    params = model.init(0)
+    bounds = (0,) + cuts + (model.cfg.n_layers,)
+    stages = [stage_model(model, bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
+    sps = split_stage_params(model, params, cuts)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 37),
+                         generator=torch.Generator().manual_seed(1)).to(cuda_device)
+
+    def ship(x):
+        return codec.loads(codec.dumps(x)).to(cuda_device)
+
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        want, cache = model.prefill(params, {"tokens": toks}, 64)
+        full_counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        x, caches = None, []
+        for i, (sm, sp) in enumerate(zip(stages, sps)):
+            x, c = sm.prefill(sp, {"tokens": toks} if i == 0 else {"hidden": ship(x)}, 64)
+            caches.append(c)
+        assert ops.launch_counts() == full_counts
+        assert torch.equal(want, x)
+        for tok in (5, 17):
+            t = torch.full((2, 1), tok, device=cuda_device)
+            want, cache = model.decode_step(params, cache, t)
+            x = t
+            for i, (sm, sp) in enumerate(zip(stages, sps)):
+                x, caches[i] = sm.decode_step(sp, caches[i], x if i == 0 else ship(x))
+            assert torch.equal(want, x), tok
+
+
+@pytest.mark.cuda
+def test_pipeline_engine_on_the_card_matches_the_cpu(cuda_device):
+    """fp32: a 2-stage PipelineEngine on the card, recut to 3 stages midway,
+    serves the CPU engine's greedy tokens with the same frame bytes."""
+    import numpy as np
+
+    from repro_torch.convert import move_params
+    from repro_torch.serving.pipeline_decode import PipelineEngine
+
+    cpu, gpu = _reduced_granite("float32", "cpu"), _reduced_granite("float32", cuda_device)
+    p_cpu = cpu.init(0)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cpu.cfg.vocab_size, size=n) for n in (5, 17, 33, 9, 60)]
+    runs = []
+    for model, params in ((cpu, p_cpu), (gpu, move_params(p_cpu, cuda_device))):
+        eng = PipelineEngine(model, params, max_batch=3, max_len=128, cuts=(2,))
+        for p in prompts:
+            eng.submit(p, max_new=8)
+        for _ in range(3):
+            eng.step()
+        moved = eng.recut((1, 3))
+        done = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        runs.append((done, moved, eng.prefill_frame_bytes_total, eng.decode_frame_bytes_total))
+    assert runs[0] == runs[1]
+    assert len(runs[0][0]) == len(prompts)
