@@ -84,7 +84,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
    periods of its shared block; the whole model's params, grads and
    moments do not fit one card), bf16, trained 10 steps the same way, no
    checkpoint; step time, tok/s, MFU, peak memory and a profile of a step
-   (the SSD, flash and RMSNorm backwards read from their spans).
+   (the SSD, flash and RMSNorm backwards read from their spans);
+14. ``resnet``: ResNet-34 (the paper's §4.1 model) at 224 px in fp32: the
+   forward, loss and every gradient on the card against the CPU on one set
+   of params; the calibrated reproduction table of the paper's appendix
+   A.1 beside this card's batch of 128 in 8 microbatches of 16 (forward,
+   and forward + backward, by CUDA events, against the fp32 FLOP bound);
+   the reference bench's 2-stage cut at ``len(params) // 2``;
+15. ``train_pp``: the pipeline-parallel trainer on an emulated (1, 2) mesh:
+   the gpipe and hybrid pipelined steps against the unsplit step in fp32
+   (granite-8b and rwkv6-1.6b at full width cut to 4 layers, zamba2-7b to
+   12): loss, every gradient leaf, grad_norm, 3 AdamW steps, exact
+   launches; then rwkv6-1.6b at full width and depth, bf16, remat, hybrid
+   over 2 stages in 4 microbatches of 2 x 512 tokens, 10 steps through the
+   Trainer: a falling held-out loss, the ticks and bubble, boundary bytes
+   per tick, the stash, the peak memory and the step time beside the
+   unsplit step's.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
@@ -97,7 +112,9 @@ once a firing and no scan kernel; RMSNorm in both), the rwkv6 training
 path the rwkv6 kernel (24 times a forward, twice that under remat) and
 RMSNorm and no decode kernel, the zamba2
 training path the SSD kernel (42 times a forward, 84 a step), flash (7
-and 14) and RMSNorm and no decode kernel.
+and 14) and RMSNorm and no decode kernel, a pipelined training step
+exactly each layer's kernels once per forward its (stage, microbatch)
+runs (``pp_launches``) and no decode kernel.
 
 The line before the last is a JSON object of per-kernel numbers, the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -148,7 +165,8 @@ MODEL_TOL = 1e-4
 BF16_MODEL_TOL = 0.25
 
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
-          "serve_stages", "agent", "serve_rwkv", "serve_hybrid", "train", "train_hybrid")
+          "serve_stages", "agent", "serve_rwkv", "serve_hybrid", "train", "train_hybrid",
+          "resnet", "train_pp")
 # the phases that serve full-width granite-8b, one set of weights between them
 GRANITE_PHASES = ("serve", "serve_paged", "serve_stages", "agent")
 OPT_IN = ("lr_probe", "baseline")
@@ -1057,7 +1075,7 @@ def check_launches(got: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
-def check_served_kernels(tag: str, drive, want: dict) -> dict:
+def check_served_kernels(tag: str, drive, want: dict, worst_args: dict | None = None) -> dict:
     """Run ``drive()`` with each kernel's CUDA wrapper (the function ``ops``
     routes a card tensor to) replaced by one that also runs the kernel's
     plain version on the same inputs and gates the two, so every kernel is
@@ -1066,7 +1084,9 @@ def check_served_kernels(tag: str, drive, want: dict) -> dict:
     SSD's final state) within SCAN_F32_TOL x max|ref|.  ``want``: the calls
     by kernel that ``drive`` must make (or a function that gives them once
     ``drive`` has run).  Returns, by kernel, the calls, the
-    shapes of their first two inputs and the worst margin (error / limit)."""
+    shapes of their first two inputs and the worst margin (error / limit);
+    ``worst_args``, when given, receives by kernel the inputs of its call
+    with the worst margin."""
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import mamba2_ssd as kssd
@@ -1094,6 +1114,8 @@ def check_served_kernels(tag: str, drive, want: dict) -> dict:
                                          f"non-finite output")
                 m = (gate(got, r, BF16_TOL, True) if got.dtype == torch.bfloat16
                      else gate(got, r, SCAN_F32_TOL, False))
+                if worst_args is not None and (name not in worst_args or m > rec["margin"]):
+                    worst_args[name] = args
                 rec["margin"] = max(rec["margin"], m)
             rec["calls"] += 1
             rec["shapes"].add(tuple(tuple(a.shape) for a in args[:2]))
@@ -2248,7 +2270,9 @@ def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
     seed 0, trained ``n_steps`` through the launcher's step function and
     Trainer on 8 x 512 TokenPipeline tokens, AdamW warmup 10, weight decay
     0.01, lr ``TRAIN_LR``; no checkpoint (the ``train`` phase holds the
-    store).  The loss must be finite and fall on a held-out batch."""
+    store).  The loss must be finite and fall on a held-out batch; one
+    more step holds each kernel against its plain version on the trained
+    weights."""
     import shutil
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.convert import leaves
@@ -2305,10 +2329,16 @@ def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
               "firings)", peak, wall)
     log(f"[train-hybrid] launches over the run: {counts}")
     add_launches(results, counts, "train_hybrid")
-    # where a step's time goes
     step = make_step_fn(model, opt_cfg)
     p, o = out["params"], out["opt"]
     b0 = next(token_batches(pipe, n_steps, model.device))
+    # each kernel of a step on the trained weights against its plain version
+    served = check_served_kernels("zamba2-7b training step", lambda: step(p, o, b0),
+                                  {k: n // n_steps for k, n in counts.items()})
+    log(f"[train-hybrid] a step after the run, each kernel against its plain version at the "
+        f"step's shapes (bf16 gate {BF16_TOL} x max(1, |ref|), the SSD's fp32 state "
+        f"{SCAN_F32_TOL} x max|ref|): {served}")
+    # where a step's time goes
 
     def one_step():
         step(p, o, b0)
@@ -2337,6 +2367,401 @@ def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
         f"({fa_us / 1e3 / fa_n:.2f} ms each); the RMSNorm forward kernel {rms_fwd:.2f} ms, its "
         f"backward (span rmsnorm_backward) {rms_us / 1e3:.1f} ms over {rms_n} entries; cuBLAS "
         f"GEMMs {gemm:.1f} ms")
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: the paper's training experiment (ResNet-34) and the
+# pipeline-parallel LM trainer
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH, RESNET_MB = 128, 16          # the paper's appendix A.1 setting: 8 x 16
+# ResNet-34 gradients at 224 px x 4 images, fp32 against float64, worst leaf
+# |err| / max(1, max|g|): the CPU reads 5.59e-3 and the card 7.82e-3 with TF32
+# off, 1.54e-1 with cuDNN's default TF32 (PERF.md, PR 21).  The limit sits
+# between the two card readings: TF32, or a wrong convolution, in the timed
+# configuration fails it; the run checks that TF32 does.
+RESNET_F64_TOL = 3e-2
+
+
+def _resnet_grads(R, meta, params, x, y):
+    from repro_torch.convert import leaves
+    flat = list(leaves(params))
+    for p in flat:
+        p.requires_grad_(True)
+    loss = R.loss_fn(params, meta, x, y)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def _grad_err(got, ref) -> float:
+    """Worst leaf error of gradients ``got`` against ``ref``, each leaf's max
+    |diff| over max(1, max|ref|)."""
+    return max((a.cpu().double() - b.double()).abs().max().item()
+               / max(1.0, b.abs().max().item()) for a, b in zip(got, ref))
+
+
+def phase_resnet(parity_px: int = 64, parity_batch: int = 2, reps: int = 3) -> None:
+    """ResNet-34 (the paper's §4.1 model): the forward, loss and every
+    gradient on the card against the CPU in fp32 on one set of params, at
+    the CPU tests' size (``parity_px`` px, ``parity_batch`` images), and how
+    far fp32 lies from float64 at 224 px on either device; the calibrated
+    reproduction table beside the card's batch of 128 in 8 microbatches of
+    16 at 224 px (forward, and forward + backward, by CUDA events, against
+    the fp32 FLOP bound with TF32 off); and the reference bench's 2-stage
+    cut at ``len(params) // 2`` with its max(s1, s2) x m + min(s1, s2)
+    formula."""
+    from repro_torch.configs.resnet34 import CONFIG
+    from repro_torch.convert import move_params, tree_map
+    from repro_torch.core import calibrate
+    from repro_torch.data.synthetic import ImagePipeline
+    from repro_torch.models import resnet as R
+    meta, params = R.init_resnet(CONFIG, torch.Generator(device="cuda").manual_seed(0))
+    p_cpu = move_params(params, "cpu")
+    # card vs CPU, fp32, at the tests' size
+    xs, ys = (torch.from_numpy(a) for a in
+              ImagePipeline(CONFIG.n_classes, parity_px, parity_batch).batch_at(0))
+    with torch.no_grad():
+        lg = R.forward(meta, params, xs.cuda())
+    lc = R.forward(meta, p_cpu, xs)
+    logit_err = check_close("resnet34 logits", lg.cpu(), lc, MODEL_TOL, relative=True)
+    l_g, g_g = _resnet_grads(R, meta, params, xs.cuda(), ys.cuda())
+    l_c, g_c = _resnet_grads(R, meta, p_cpu, xs, ys)
+    loss_err = abs(l_g.item() - l_c.item()) / abs(l_c.item())
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"resnet34 loss card {l_g.item()} vs CPU {l_c.item()}")
+    for i, (a, ref) in enumerate(zip(g_g, g_c)):
+        e = _grad_err([a], [ref])
+        if not e <= GRAD_TOL:
+            raise AssertionError(f"resnet34 gradient leaf {i}: {e:.3e} beyond {GRAD_TOL}")
+    log(f"[resnet] ResNet-34 ({len(params)} blocks, {sum(t.numel() for t in g_c)} params), "
+        f"fp32, {parity_batch} images of {parity_px} px, card vs CPU: logits worst "
+        f"{logit_err:.2e} (tol {MODEL_TOL} x max(1, |ref|)); loss {l_g.item():.6f} vs "
+        f"{l_c.item():.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_TOL}); {len(g_c)} gradient "
+        f"leaves, worst {_grad_err(g_g, g_c):.2e} of max(1, max|g|) (tol {GRAD_TOL})")
+    # fp32 against float64 at 224 px: the gradients' own conditioning
+    xs, ys = (torch.from_numpy(a) for a in ImagePipeline(CONFIG.n_classes, CONFIG.img_size,
+                                                         4).batch_at(0))
+    g64 = _resnet_grads(R, meta, tree_map(lambda t: t.detach().double(), p_cpu), xs.double(),
+                        ys)[1]
+    card = lambda: _grad_err(_resnet_grads(R, meta, params, xs.cuda(), ys.cuda())[1], g64)
+    err_off = card()
+    torch.backends.cudnn.allow_tf32 = True         # cuDNN's default for fp32 convolutions
+    err_tf32 = card()
+    torch.backends.cudnn.allow_tf32 = False
+    if not err_off <= RESNET_F64_TOL < err_tf32:
+        raise AssertionError(f"resnet34 gradients at 224 px against float64: the card with "
+                             f"TF32 off {err_off:.3e}, with TF32 {err_tf32:.3e}; the limit "
+                             f"{RESNET_F64_TOL} must pass the first and fail the second")
+    log(f"[resnet] 4 images of 224 px, gradients against the CPU's float64: the CPU in fp32 "
+        f"worst {_grad_err(_resnet_grads(R, meta, p_cpu, xs, ys)[1], g64):.2e}, the card in fp32 "
+        f"with TF32 off {err_off:.2e} (limit {RESNET_F64_TOL}; with cuDNN's default TF32 "
+        f"{err_tf32:.2e}, which the limit refuses) of max(1, max|g|): fp32's own error at "
+        f"this size, where the {GRAD_TOL} gate would not hold on either device")
+    del p_cpu, g_g, g_c, g64
+    x, y = (torch.from_numpy(a).cuda() for a in
+            ImagePipeline(CONFIG.n_classes, CONFIG.img_size, RESNET_BATCH).batch_at(0))
+    # the batch of 128 in 8 microbatches of 16, on the card
+    m = RESNET_BATCH // RESNET_MB
+    mbs = [(x[i * RESNET_MB:(i + 1) * RESNET_MB], y[i * RESNET_MB:(i + 1) * RESNET_MB])
+           for i in range(m)]
+
+    def fwd_batch():
+        with torch.no_grad():
+            for xm, _ in mbs:
+                R.forward(meta, params, xm)
+
+    def train_batch():
+        for xm, ym in mbs:
+            _resnet_grads(R, meta, params, xm, ym)
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = sync_time_ms([fwd_batch], iters=reps, warmup=1)
+    train_ms = sync_time_ms([train_batch], iters=reps, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    profile_step(lambda: _resnet_grads(R, meta, params, *mbs[0]), "ResNet-34 training "
+                 f"microbatch of {RESNET_MB} at 224 px, fp32", top=8, reps=2)
+    costs = R.block_costs(CONFIG, meta, params, RESNET_MB)
+    fwd_flops = sum(f for f, _ in costs) * m
+    bound_ms = 3 * fwd_flops / PEAK_F32_FLOPS * 1e3
+    rows = calibrate.reproduction_table()
+    for r in rows:
+        log(f"[resnet] reproduction {r['setup']:20s} predicted {r['predicted_s']:.3f} s, paper "
+            f"{r['paper_s']:.3f} s, rel_err {r['rel_err']:.3f}"
+            f"{' (held out)' if r['held_out'] else ''}")
+    log(f"[resnet] this card, batch {RESNET_BATCH} in {m} microbatches of {RESNET_MB}, fp32 "
+        f"(TF32 off), {reps} batches after a warm-up: training (forward + backward) "
+        f"{train_ms / 1e3:.4f} s a batch ({train_ms / m:.3f} ms a microbatch; bound "
+        f"{bound_ms:.1f} ms at {3 * fwd_flops:.4e} FLOPs / {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s "
+        f"fp32, {bound_ms / train_ms:.3f} of it; {3 * fwd_flops / (train_ms / 1e3) / 1e12:.2f} "
+        f"TFLOP/s); inference {fwd_ms / 1e3:.4f} s a batch ({fwd_ms / m:.3f} ms a microbatch, "
+        f"bound {bound_ms / 3:.1f} ms); against the paper's desktop alone "
+        f"{calibrate.PAPER_MS['desktop_alone'] / 1e3:.3f} s and inference "
+        f"{calibrate.PAPER_MS['desktop_alone_infer'] / 1e3:.3f} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    # the reference bench's 2-stage cut (forward only, one microbatch)
+    cut = len(params) // 2
+    xm = mbs[0][0]
+    with torch.no_grad():
+        h = R.forward(meta, params, xm, upto=cut)
+
+        def s1():
+            R.forward(meta, params, xm, upto=cut)
+
+        def s2():
+            R.forward(meta, params, h, start=cut)
+
+        def full():
+            R.forward(meta, params, xm)
+        t1, t2, tf = (sync_time_ms([f], iters=20) for f in (s1, s2, full))
+    pipe = max(t1, t2) * m + min(t1, t2)
+    log(f"[resnet] 2-stage cut before block {cut} of {len(params)} (boundary "
+        f"{costs[cut - 1][1] / 1e6:.1f} MB a microbatch of {RESNET_MB}): stage 1 {t1:.3f} ms, "
+        f"stage 2 {t2:.3f} ms, unsplit {tf:.3f} ms a microbatch; 2 devices pipelined "
+        f"(max x {m} + min) {pipe / m:.3f} ms a microbatch, {tf / (pipe / m):.2f}x the unsplit "
+        f"forward")
+
+
+def _wkv6_f64(r, k, v, log_w, u) -> torch.Tensor:
+    """The WKV6 token recurrence in float64 (out only)."""
+    b, t, h, dk = r.shape
+    s = torch.zeros((b, h, dk, dk), dtype=torch.float64, device=r.device)
+    rf, kf, vf, wf = (a.double() for a in (r, k, v, torch.exp(log_w.double())))
+    uf = u.double()[None, :, :, None]
+    outs = []
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, i], s + uf * kv))
+        s = wf[:, i, :, :, None] * s + kv
+    return torch.stack(outs, dim=1)
+
+
+def pp_launches(cfg, g, schedule: str, remat: bool) -> dict:
+    """Kernel launches of one pipelined step (forward kernels; the backwards
+    run the plain versions): every layer's kernels once per forward its
+    (stage, microbatch) runs -- with grad, plus remat's recompute, plus, on
+    the hybrid's stages before the last, the forward of the F tick -- and
+    the final norm once per microbatch, over the R replica columns of the
+    one data replica the phase's (1, 2) mesh has."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.blocks import is_recurrent
+    layer = ({"rwkv6_scan": 1, "rmsnorm": 2} if cfg.rwkv else
+             {"mamba2_ssd": 1, "rmsnorm": 2} if is_recurrent(cfg) else
+             {"flash_attention": 1, "rmsnorm": 2})
+    shared = {"flash_attention": 1, "rmsnorm": 2}
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    cols = g.M * g.R
+    for s in range(g.S):
+        fwds = 1 + int(remat) + int(schedule == "hybrid" and s < g.S - 1)
+        for idx in range(s * g.lps, min((s + 1) * g.lps, cfg.n_layers)):
+            fire = [shared] if cfg.attn_every and idx % cfg.attn_every == 0 else []
+            for kern in [layer] + fire:
+                for name, n in kern.items():
+                    want[name] += n * fwds * cols
+    want["rmsnorm"] += cols
+    return want
+
+
+def phase_train_pp(results: dict, n_steps: int = 10, n_warm: int = 10,
+                   warmup: int = 3) -> None:
+    """The pipelined trainer (``core/pipeline.py``) on the card.  First the
+    pipelined step against the unsplit step of the launcher on one set of
+    fp32 params, for gpipe and hybrid on an emulated (1, 2) mesh (2 stages):
+    granite-8b and rwkv6-1.6b at full width cut to 4 layers, zamba2-7b at
+    full width cut to 12 (its shared block fires in both stages), 4 x 128
+    tokens in 2 microbatches: loss, every gradient leaf, grad_norm and the
+    losses of 3 AdamW steps, each kernel's launches exact, and in the hybrid
+    step every kernel held against its plain version at the shapes it gets.
+    Then rwkv6-1.6b at full width and depth, bf16 with remat: the
+    launcher's unsplit step warms it up for ``n_warm`` steps with the
+    ``train`` phase's AdamW (the loss rises over the warm-up, split or not)
+    and gives the unsplit step time; the hybrid pipelined step over 2
+    stages, 4 microbatches of 2 x 512 tokens, continues the same schedule
+    for ``n_steps`` through the launcher's Trainer.  One pipelined step
+    holds every kernel against its plain version; over the Trainer's run
+    the loss falls on a held-out batch and the kernel launches are exact;
+    a profiled step gives the device's busy share."""
+    import shutil
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.convert import leaves, tree_map
+    from repro_torch.core import schedules
+    from repro_torch.core.pipeline import make_pp_train_step
+    from repro_torch.data.synthetic import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as krwkv
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_step_fn, token_batches
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    mesh = make_host_mesh((1, 2))
+    clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=0, schedule="const", weight_decay=0.0)
+    for arch, n_layers in (("granite-8b", 4), ("rwkv6-1.6b", 4), ("zamba2-7b", 12)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        shape = ShapeConfig("parity", 128, 4, "train")
+        rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False,
+                         microbatches=2)
+        model = build_model(cfg, rcfg, device="cuda")
+        p0 = model.init(0)
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                                        global_batch=shape.global_batch))
+        batches = [next(token_batches(pipe, i, "cuda")) for i in range(3)]
+        l_ref, g_ref = _loss_and_grads(model, p0, batches[0]["tokens"])
+        params, step = clone(p0), make_step_fn(model, opt_cfg)
+        opt, ref_losses, ref_norms = adamw.init(params), [], []
+        for b in batches:
+            params, opt, met = step(params, opt, b)
+            ref_losses.append(met["loss"].item())
+            ref_norms.append(met["grad_norm"].item())
+        del params, opt
+        for schedule in ("gpipe", "hybrid"):
+            built = make_pp_train_step(cfg, shape, dataclasses.replace(rcfg, schedule=schedule),
+                                       mesh, opt_cfg, device="cuda")
+            g, sch = built["geometry"], built["schedule"]
+            pp = built["to_pipeline"](clone(p0))
+            want = pp_launches(cfg, g, schedule, rcfg.remat)
+            ops.reset_launch_counts()
+            if schedule == "hybrid":
+                out = {}
+                served = check_served_kernels(f"{arch} {schedule} pipelined step",
+                                              lambda: out.update(r=sch(pp, batches[0])), want)
+                loss, grads = out.pop("r")
+            else:
+                loss, grads = sch(pp, batches[0])
+            counts = ops.launch_counts()
+            check_launches(counts, want, f"{arch} {schedule} pipelined step")
+            loss_err = abs(loss.item() - l_ref.item()) / abs(l_ref.item())
+            if not loss_err <= TRAIN_LOSS_TOL:
+                raise AssertionError(f"{arch} {schedule} loss {loss.item()} vs unsplit "
+                                     f"{l_ref.item()}")
+            grad_err = 0.0
+            for i, (a, ref) in enumerate(zip(leaves(grads), g_ref)):
+                e = (a - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+                if not e <= GRAD_TOL:
+                    raise AssertionError(f"{arch} {schedule} gradient leaf {i}: {e:.3e}")
+                grad_err = max(grad_err, e)
+            del grads
+            opt, losses, norms = adamw.init(pp), [], []
+            for b in batches:
+                pp, opt, met = built["fn"](pp, opt, b)
+                losses.append(met["loss"].item())
+                norms.append(met["grad_norm"].item())
+            norm_err = abs(norms[0] - ref_norms[0]) / ref_norms[0]
+            step_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+            if not (norm_err <= TRAIN_LOSS_TOL and step_err <= STEP_LOSS_TOL):
+                raise AssertionError(f"{arch} {schedule}: grad_norm {norms[0]} vs {ref_norms[0]}, "
+                                     f"AdamW losses {losses} vs {ref_losses}")
+            log(f"[train-pp] {arch} (d_model {cfg.d_model}, {n_layers} layers) {schedule}, fp32, "
+                f"S={g.S} M={g.M} x {g.b_mb} x {shape.seq_len} tokens vs the unsplit step: loss "
+                f"rel {loss_err:.2e} (tol {TRAIN_LOSS_TOL}), {len(g_ref)} gradient leaves worst "
+                f"{grad_err:.2e} of max(1, max|g|) (tol {GRAD_TOL}), grad_norm rel "
+                f"{norm_err:.2e}, 3 AdamW steps' losses worst rel {step_err:.2e} (tol "
+                f"{STEP_LOSS_TOL}); launches {counts}")
+            if schedule == "hybrid":
+                log(f"[train-pp] {arch} hybrid, each kernel against its plain version at the "
+                    f"step's shapes (fp32 gate {SCAN_F32_TOL} x max|ref|): {served}")
+            del pp, opt
+        del p0, g_ref
+        torch.cuda.empty_cache()
+    # rwkv6-1.6b at full width and depth, bf16, remat: warmed up by the
+    # unsplit step, then trained by the hybrid pipelined step over 2 stages
+    cfg, rcfg = get_config("rwkv6-1.6b"), RunConfig(schedule="hybrid", microbatches=4)
+    batch, seq = 8, 512
+    shape = ShapeConfig("train_pp", seq, batch, "train")
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=n_warm + n_steps,
+                                weight_decay=0.01)
+    built = make_pp_train_step(cfg, shape, rcfg, mesh, opt_cfg, device="cuda")
+    model, g, sch = built["model"], built["geometry"], built["schedule"]
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                    seed=rcfg.seed))
+    held_out = next(token_batches(pipe, 100_000, "cuda"))
+
+    def eval_loss(p):
+        with torch.no_grad():
+            return model.loss(built["from_pipeline"](p), held_out)[0].item()
+    p, step = model.init(0), make_step_fn(model, opt_cfg)
+    o, data, times = adamw.init(p), token_batches(pipe, 0, "cuda"), []
+    for _ in range(n_warm):
+        b = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, met = step(p, o, b)
+        met["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    un_ms = float(np.median(times[2:]))
+    params = built["to_pipeline"](p)
+    opt = dict(m=built["to_pipeline"](o["m"]), v=built["to_pipeline"](o["v"]), step=o["step"])
+    del p, o, data
+    loss_before = eval_loss(params)
+    per_step = pp_launches(cfg, g, "hybrid", rcfg.remat)
+    b0 = next(token_batches(pipe, n_warm, "cuda"))
+    worst = {}
+    served = check_served_kernels("rwkv6-1.6b pipelined step", lambda: sch(params, b0), per_step,
+                                  worst_args=worst)
+    # the WKV6 call farthest from the plain version, against the float64
+    # recurrence: a trained model's state reaches ~1e4 while out rows cancel
+    # to O(1), where the kernel's inter term needs fp32's 24 bits
+    args = worst.pop("rwkv6_scan")
+    f64 = _wkv6_f64(*args)
+    f64_margin = gate(krwkv.rwkv6_cuda(*args), f64, BF16_TOL, True)
+    plain_margin = gate(krwkv.rwkv6_chunked_plain(*args), f64, BF16_TOL, True)
+    if not f64_margin <= 1.0:
+        raise AssertionError(f"rwkv6 kernel against the float64 recurrence in the pipelined "
+                             f"step: margin {f64_margin:.3f}")
+    log(f"[train-pp] rwkv6-1.6b pipelined step (bf16, remat, hybrid), each kernel against its "
+        f"plain version at the step's shapes (bf16 gate {BF16_TOL} x max(1, |ref|)): {served}; "
+        f"the WKV6 call farthest from it against the float64 recurrence (max|ref| "
+        f"{f64.abs().max().item():.4g}): kernel margin {f64_margin:.3f}, plain version "
+        f"{plain_margin:.3f}")
+    del worst, args, f64
+    events = []
+
+    def on_metrics(step, rec):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    ckpt_dir = ROOT / "build" / "chip_smoke_train_pp"          # stays empty: no step saves
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tr = Trainer(TrainerConfig(total_steps=n_steps, ckpt_every=n_steps + 1,
+                               ckpt_dir=str(ckpt_dir), log_every=5),
+                 built["fn"], lambda: (params, opt),
+                 lambda start: token_batches(pipe, n_warm + start, "cuda"),
+                 on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check_launches(counts, {k: n * n_steps for k, n in per_step.items()},
+                   f"rwkv6-1.6b pipelined training, {n_steps} steps")
+    losses = out["losses"]
+    loss_after = eval_loss(out["params"])
+    if not all(np.isfinite(losses)) or not loss_after < loss_before:
+        raise AssertionError(f"pipelined training losses {losses}, held-out loss "
+                             f"{loss_before} -> {loss_after}: not finite or not falling")
+    n_params = sum(t.numel() for t in leaves(out["params"]))
+    n_embed = out["params"]["embed"]["tok"].numel() + out["params"]["head"]["w"].numel()
+    trace = sch.trace
+    stats = schedules.schedule_stats(sch.table, g.S, g.M)
+    log(f"[train-pp] rwkv6-1.6b {cfg.n_layers} layers, bf16, remat, hybrid: S={g.S} stages of "
+        f"{g.lps} layers, R={g.R}, M={g.M} microbatches of {g.b_mb} x {seq} tokens; "
+        f"{stats['ticks']} ticks, bubble {stats['bubble_fraction']:.4f} (schedule_stats); "
+        f"boundary bytes per tick {trace.tick_bytes[0]}, stash peak {trace.stash_peak} B "
+        f"(stage 0 stashes token ids and re-embeds); launches per step {per_step}; steps "
+        f"{n_warm + 1}-{n_warm + n_steps} of the schedule, after {n_warm} unsplit steps")
+    log_steps("train-pp", out, events, warmup, batch, seq, n_steps, loss_before, loss_after,
+              n_params - n_embed, "non-embedding params", peak, wall)
+    add_launches(results, counts, "train_pp")
+    pp_ms = float(np.median([r["step_s"] * 1e3 for r in out["history"][warmup:]]))
+    p, o = out["params"], out["opt"]
+    profile_step(lambda: built["fn"](p, o, b0), "rwkv6-1.6b pipelined training step (hybrid, "
+                 f"S={g.S}, M={g.M} x {g.b_mb} x {seq} tokens)", top=8, reps=1)
+    log(f"[train-pp] step median {pp_ms:.1f} ms pipelined (hybrid, S={g.S}, M={g.M}; steps "
+        f"{warmup + 1}-{n_steps} of its run) against {un_ms:.1f} ms unsplit (the launcher's "
+        f"step on the same model and batch shape, median of warm-up steps 3-{n_warm}; all "
+        f"{', '.join(f'{t:.1f}' for t in times)}): {pp_ms / un_ms:.2f}x")
 
 
 def _train_losses(cfg, rcfg, lr: float, n_steps: int, batch: int, seq: int, device: str,
@@ -2687,6 +3112,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "train_hybrid" in phases:
         phase_train_hybrid(results)
+        torch.cuda.empty_cache()
+    if "resnet" in phases:
+        phase_resnet()
+        torch.cuda.empty_cache()
+    if "train_pp" in phases:
+        phase_train_pp(results)
     if "lr_probe" in phases:
         phase_lr_probe()
     if "baseline" in phases:

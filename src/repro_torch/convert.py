@@ -7,12 +7,13 @@ per layer, and bf16 leaves (ml_dtypes arrays) cross as a ``uint16`` bit
 view reinterpreted as ``torch.bfloat16``, so no value is rounded.
 ``cache_from_jax`` carries a decode cache the same way; the port keeps the
 reference's cache tree (layer-stacked leaves, ``pos``, zamba2's
-``ak``/``av``), so every leaf crosses as it is.
+``ak``/``av``), so every leaf crosses as it is.  ``resnet_params_from_jax``
+carries ResNet-34's list of block dicts, whose layout the port keeps too.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -82,3 +83,9 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
 def cache_from_jax(tree: dict, device="cuda") -> dict:
     """A JAX decode cache with numpy leaves as the port's cache on ``device``."""
     return tree_map(lambda a: tensor_from_numpy(a).to(device), tree)
+
+
+def resnet_params_from_jax(blocks: List[dict], device="cuda") -> List[dict]:
+    """The reference's ResNet block list with numpy leaves as the port's, on
+    ``device``: the layout is the same, so each leaf crosses as it is."""
+    return cache_from_jax(blocks, device)

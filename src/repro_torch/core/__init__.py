@@ -1,1 +1,2 @@
-"""Planning: the heterogeneous and decode-mode stage partitioners."""
+"""Planning and pipelines: the stage partitioners, the schedule tables, the
+calibrated cost model and the pipeline-parallel trainer."""

@@ -1,1 +1,1 @@
-"""Deterministic synthetic token streams."""
+"""Deterministic synthetic token streams and image batches."""

@@ -1,18 +1,18 @@
-"""Deterministic synthetic token stream (port of ``repro/data/synthetic.py``,
-token part).
+"""Deterministic synthetic data (port of ``repro/data/synthetic.py``: the
+token stream and the image batches of the ResNet reproduction).
 
 A fixed random bigram transition table gives the stream learnable
 structure, so training loss measurably descends (a uniform stream would
 plateau at ln(V)).  numpy throughout, with the reference's generators and
 draw order: the same (seed, step, shard) gives the reference's batch, bit
-for bit.  The frontend and image pipelines wait for their families
-(ROADMAP §1 item 10).
+for bit.  Image batches are class-templated noise (paper §4.1).  The
+frontend pipeline waits for its families (ROADMAP §1 item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -57,3 +57,26 @@ class TokenPipeline:
         while True:
             yield self.batch(step)
             step += 1
+
+
+class ImagePipeline:
+    """Class-templated noisy images (ResNet §4.1 reproduction), NHWC float32
+    with int32 labels."""
+
+    def __init__(self, n_classes: int, img_size: int, batch: int,
+                 seed: int = 0, shard: int = 0, n_shards: int = 1):
+        self.n_classes = n_classes
+        self.img = img_size
+        self.batch = batch // n_shards
+        self.seed = seed
+        self.shard = shard
+        rng = np.random.default_rng(seed)
+        self.templates = rng.standard_normal(
+            (n_classes, img_size, img_size, 3)).astype(np.float32)
+
+    def batch_at(self, step: int) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng((self.seed + step) * 64 + self.shard)
+        labels = rng.integers(0, self.n_classes, size=self.batch)
+        x = self.templates[labels] + 0.5 * rng.standard_normal(
+            (self.batch, self.img, self.img, 3)).astype(np.float32)
+        return x.astype(np.float32), labels.astype(np.int32)

@@ -44,7 +44,13 @@
 // reduce-scatter over the warp sums the channels.  r, k and v are exact in
 // bf16; the decay-scaled operands, P and the state are not, so each is
 // split into hi + lo bf16 terms (a product of two split operands takes
-// hi.hi + hi.lo + lo.hi).  The prefix sums run in fp32 in log2 units (every
+// hi.hi + hi.lo + lo.hi).  The inter term splits both of its operands
+// into hi + mid + lo (24 bits, fp32's) and takes the six products of order
+// below three: the state grows to ~1e4 over a sequence of a trained model
+// while an out row of it cancels to O(1), and hi + lo (16 bits) put such
+// rows 1.32x past the bf16 gate against the plain version in rwkv6-1.6b's
+// eleventh training step (chip_smoke.py, train_pp); three terms keep them
+// to bf16's rounding.  The prefix sums run in fp32 in log2 units (every
 // exponential is one ex2).  out leaves through shared memory in 16-byte
 // vectors.  What it does about the bound: every chunk product is on tensor
 // cores and no score work is repeated; what remains is issue (the splits,
@@ -200,7 +206,8 @@ struct TcSmem {
   static constexpr int NSEG = TC_THREADS / K;          // prefix segments a channel
   static constexpr size_t la = 0;                      // float [CH + 1][LS]: row t+1 = La_t, row 0 = 0
   static constexpr size_t shi = la + 4 * (TC_CH + 1) * LS;  // bf16 [K][BS]: S^T, hi
-  static constexpr size_t slo = shi + 2 * K * BS;           // and lo
+  static constexpr size_t smid = shi + 2 * K * BS;          // mid
+  static constexpr size_t slo = smid + 2 * K * BS;          // and lo
   static constexpr size_t pd = slo + 2 * K * BS;            // float [CH][PS]
   static constexpr size_t u = pd + 4 * TC_CH * PS;          // float [K]
   static constexpr size_t seg = u + 4 * K;                  // float [NSEG][K]: segment totals
@@ -210,13 +217,21 @@ struct TcSmem {
   static constexpr size_t o = v + 2 * TC_CH * BS;           // bf16 [CH][BS]: the chunk's out
   static constexpr size_t raw = o + 2 * TC_CH * BS;         // float [CH][K]: the next log-decay
   static constexpr size_t bytes = raw + 4 * TC_CH * K;
-  static_assert(shi % 16 == 0 && slo % 16 == 0 && pd % 16 == 0 && r % 16 == 0 && k % 16 == 0 &&
+  static_assert(shi % 16 == 0 && smid % 16 == 0 && slo % 16 == 0 && pd % 16 == 0 && r % 16 == 0 && k % 16 == 0 &&
                 v % 16 == 0 && o % 16 == 0 && raw % 16 == 0, "16-byte rows");
 };
 
 __device__ __forceinline__ float2 f2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ uint32_t u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// x and y as hi + mid + lo bf16 pairs: 24 bits, fp32's precision
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  hi = hopper::pack_bf16(x, y);
+  const float2 h = hopper::unpack_bf16(hi);
+  hopper::split_bf16(x - h.x, y - h.y, mid, lo);
 }
 
 // one step of a reduce-scatter over the warp: lanes whose bit O is clear
@@ -254,6 +269,7 @@ rwkv6_kernel_tc(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
   extern __shared__ __align__(16) unsigned char tc_smem[];
   float* sLa = reinterpret_cast<float*>(tc_smem + L::la);
   __nv_bfloat16* sShi = reinterpret_cast<__nv_bfloat16*>(tc_smem + L::shi);
+  __nv_bfloat16* sSmid = reinterpret_cast<__nv_bfloat16*>(tc_smem + L::smid);
   __nv_bfloat16* sSlo = reinterpret_cast<__nv_bfloat16*>(tc_smem + L::slo);
   float* sPd = reinterpret_cast<float*>(tc_smem + L::pd);
   float* su = reinterpret_cast<float*>(tc_smem + L::u);
@@ -271,7 +287,7 @@ rwkv6_kernel_tc(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
   const size_t base = ((size_t)b * seq * heads + h) * K;
   const int t0 = SB * sb, r0 = t0 + g, r1 = r0 + 8;
   const uint32_t aV = smem_u32(sV), aR = smem_u32(sR), aK = smem_u32(sK);
-  const uint32_t aShi = smem_u32(sShi), aSlo = smem_u32(sSlo);
+  const uint32_t aShi = smem_u32(sShi), aSmid = smem_u32(sSmid), aSlo = smem_u32(sSlo);
   // this warp's tiles of S^T in fp32, kept in registers across the chunks:
   // rows j 16 mt.., columns (channels) 8 (nt0 + n)..
   const int mt = warp % MT, nt0 = (warp / MT) * NPW;
@@ -279,7 +295,8 @@ rwkv6_kernel_tc(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
 #pragma unroll
   for (int n = 0; n < NPW; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
 
-  for (int i = tid; i < K * BS; i += TC_THREADS) sShi[i] = sSlo[i] = __float2bfloat16(0.f);
+  for (int i = tid; i < K * BS; i += TC_THREADS)
+    sShi[i] = sSmid[i] = sSlo[i] = __float2bfloat16(0.f);
   for (int i = tid; i < K; i += TC_THREADS) {
     su[i] = u[(size_t)h * K + i];
     sLa[i] = 0.f;                           // La_{-1}
@@ -462,8 +479,9 @@ rwkv6_kernel_tc(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
       float xc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int kq = 0; kq < KK; ++kq) {
-        // A fragments: rt = r_t e^{La_{t-1} - La_ref} and rq = rt e^{La_ref}, hi + lo
-        uint32_t th[4], tl_[4], qh[4], ql[4];
+        // A fragments: rt = r_t e^{La_{t-1} - La_ref}, hi + lo, and rq = rt e^{La_ref},
+        // hi + mid + lo
+        uint32_t th[4], tl_[4], qh[4], qm[4], ql[4];
         float2 er[2];                           // e^{La_ref} at columns 2c.. and 2c+8..
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -477,7 +495,7 @@ rwkv6_kernel_tc(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
           const float2 lp = f2(sLa + row * LS + col), lr = f2(lref + col);
           const float ex = rv.x * ex2(lp.x - lr.x), ey = rv.y * ex2(lp.y - lr.y);
           split_bf16(ex, ey, th[i], tl_[i]);
-          split_bf16(ex * er[i >> 1].x, ey * er[i >> 1].y, qh[i], ql[i]);
+          split3_bf16(ex * er[i >> 1].x, ey * er[i >> 1].y, qh[i], qm[i], ql[i]);
         }
         {
           // cross block: rows r1 (t = 16w + 8 + g) against s = 16w + g
@@ -499,19 +517,29 @@ rwkv6_kernel_tc(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
           mma_bf16(xc, ah, b0l, b1l);
           mma_bf16(xc, al, b0h, b1h);
         }
-        // inter: rq . S0, S0^T hi and lo rows j as B fragments by ldmatrix
+        // inter: rq . S0, S0^T hi, mid and lo rows j as B fragments by
+        // ldmatrix, one at a time; the products of order below three (the
+        // smallest first)
 #pragma unroll
         for (int jq = 0; jq < NV / 2; ++jq) {
           const uint32_t off = ((j0 + 16 * jq + (lane >> 4) * 8 + (lane & 7)) * BS + 16 * kq +
                                 ((lane >> 3) & 1) * 8) * 2;
-          uint32_t bh[4], bl[4];
-          ldmatrix_x4(bh, aShi + off);
-          ldmatrix_x4(bl, aSlo + off);
+          uint32_t bf[4];
+          ldmatrix_x4(bf, aSlo + off);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) mma_bf16(acc[2 * jq + n], qh, bf[2 * n], bf[2 * n + 1]);
+          ldmatrix_x4(bf, aSmid + off);
 #pragma unroll
           for (int n = 0; n < 2; ++n) {
-            mma_bf16(acc[2 * jq + n], qh, bh[2 * n], bh[2 * n + 1]);
-            mma_bf16(acc[2 * jq + n], qh, bl[2 * n], bl[2 * n + 1]);
-            mma_bf16(acc[2 * jq + n], ql, bh[2 * n], bh[2 * n + 1]);
+            mma_bf16(acc[2 * jq + n], qm, bf[2 * n], bf[2 * n + 1]);
+            mma_bf16(acc[2 * jq + n], qh, bf[2 * n], bf[2 * n + 1]);
+          }
+          ldmatrix_x4(bf, aShi + off);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            mma_bf16(acc[2 * jq + n], ql, bf[2 * n], bf[2 * n + 1]);
+            mma_bf16(acc[2 * jq + n], qm, bf[2 * n], bf[2 * n + 1]);
+            mma_bf16(acc[2 * jq + n], qh, bf[2 * n], bf[2 * n + 1]);
           }
         }
         // scores against the earlier sub-blocks: k_s e^{La_ref - La_s}, hi + lo
@@ -590,8 +618,8 @@ rwkv6_kernel_tc(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
     }
 
     // E: kd = k_s e^{La_c - La_s}, hi + lo, over r and k; then S^T =
-    // e^{La_c} S^T + v^T kd for this warp's tiles, and their hi + lo copy for
-    // the next chunk's inter term
+    // e^{La_c} S^T + v^T kd for this warp's tiles, and their hi + mid + lo
+    // copy for the next chunk's inter term
     const float* lend = sLa + TC_CH * LS;     // La_c
     for (int i = tid; i < TC_CH * K / 2; i += TC_THREADS) {
       const int s = i / (K / 2), ch = 2 * (i % (K / 2));
@@ -637,12 +665,14 @@ rwkv6_kernel_tc(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
 #pragma unroll
     for (int n = 0; n < NPW; ++n) {
       const int col = 8 * (nt0 + n) + 2 * c, j = 16 * mt + g;
-      uint32_t hi, lo;
-      split_bf16(st[n][0], st[n][1], hi, lo);
+      uint32_t hi, mid, lo;
+      split3_bf16(st[n][0], st[n][1], hi, mid, lo);
       *reinterpret_cast<uint32_t*>(sShi + j * BS + col) = hi;
+      *reinterpret_cast<uint32_t*>(sSmid + j * BS + col) = mid;
       *reinterpret_cast<uint32_t*>(sSlo + j * BS + col) = lo;
-      split_bf16(st[n][2], st[n][3], hi, lo);
+      split3_bf16(st[n][2], st[n][3], hi, mid, lo);
       *reinterpret_cast<uint32_t*>(sShi + (j + 8) * BS + col) = hi;
+      *reinterpret_cast<uint32_t*>(sSmid + (j + 8) * BS + col) = mid;
       *reinterpret_cast<uint32_t*>(sSlo + (j + 8) * BS + col) = lo;
     }
     __syncthreads();                          // the next chunk overwrites r, k, v and La

@@ -1,0 +1,46 @@
+"""Host mesh for the pipeline trainer (port of ``repro/launch/mesh.py``'s
+``make_host_mesh``, ``data_axes`` and ``dp_degree``).
+
+The reference lays its pipeline over a JAX device mesh; on a host it forces
+N CPU devices (``--xla_force_host_platform_device_count``).  The port has
+one card and NCCL puts no two ranks on one GPU, so its mesh is shape only:
+``.shape`` maps axis names to sizes, the way :func:`repro_torch.core.pipeline.geometry`
+reads it, and one process emulates every position of the mesh on one
+device (the replica columns and data replicas run one after another).
+The production meshes (256-512 chips) wait for ROADMAP §1 item 11c.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """Axis names and sizes of an emulated device mesh."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_host_mesh(shape: Tuple[int, ...] = (1, 2),
+                   axes: Tuple[str, ...] = ("data", "model")) -> HostMesh:
+    """An emulated mesh; by default (1, 2) over ("data", "model"): no data
+    parallelism and two pipeline positions, the paper's host + phone pair."""
+    if len(shape) != len(axes) or min(shape) < 1:
+        raise ValueError(f"mesh shape {shape} does not fit axes {axes}")
+    return HostMesh(tuple(axes), tuple(int(s) for s in shape))
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def dp_degree(mesh) -> int:
+    return int(math.prod(mesh.shape[a] for a in data_axes(mesh)))

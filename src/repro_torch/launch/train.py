@@ -7,10 +7,14 @@ Runs on ``cuda`` unless ``--device cpu`` is given.  The reference's flags
 and defaults are kept, with one quirk: ``--reduced`` is ``store_true`` with
 ``default=True``, so the launcher always trains the reduced config (as the
 reference's does; ROADMAP §3).  ``--use-kernels`` is accepted and has no
-effect: the device decides between kernels and plain versions.  Only the
-``single`` strategy runs; the multi-device ones wait for ROADMAP §1 item
-11.  Checkpoints go every ``--ckpt-every`` steps to ``--ckpt-dir`` (under
-the working directory by default), and a run resumes from the latest one.
+effect: the device decides between kernels and plain versions.
+``--strategy pp_shardmap`` trains through the pipeline
+(:mod:`repro_torch.core.pipeline`, ``--schedule gpipe|hybrid``) on an
+emulated (1, ``--model-axis``) mesh, every position on the one device
+(the reference's mesh is its process's devices); the GSPMD strategies
+wait for ROADMAP §1 item 11c.  Checkpoints go every ``--ckpt-every``
+steps to ``--ckpt-dir`` (under the working directory by default), and a
+run resumes from the latest one.
 """
 
 from __future__ import annotations
@@ -21,9 +25,11 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, RunConfig, get_config, reduced_config
+from repro_torch.configs import ARCH_IDS, RunConfig, ShapeConfig, get_config, reduced_config
 from repro_torch.convert import leaves, unflatten
+from repro_torch.core.pipeline import make_pp_train_step
 from repro_torch.data.synthetic import DataConfig, TokenPipeline
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import Model, build_model
 from repro_torch.optim import adamw
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -69,12 +75,15 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default="build/repro_train")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--use-kernels", action="store_true")
+    ap.add_argument("--model-axis", type=int, default=2,
+                    help="pp_shardmap: positions of the emulated mesh's model axis "
+                         "(default 2, the paper's host + phone)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.strategy != "single":
-        raise NotImplementedError(f"strategy {args.strategy!r}: multi-device training is not "
-                                  f"ported to repro_torch yet (ROADMAP §1 item 11)")
+    if args.strategy in ("gspmd_tp", "gspmd_pp"):
+        raise NotImplementedError(f"strategy {args.strategy!r}: the GSPMD strategies are not "
+                                  f"ported to repro_torch yet (ROADMAP §1 item 11c)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -87,8 +96,16 @@ def main(argv=None):
     opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=10,
                                 total_steps=args.steps, weight_decay=0.01)
 
+    step_fn, to_pipeline = make_step_fn(model, opt_cfg), lambda p: p
+    if args.strategy == "pp_shardmap":
+        built = make_pp_train_step(cfg, ShapeConfig("cli", args.seq, args.batch, "train"), rcfg,
+                                   make_host_mesh((1, args.model_axis)), opt_cfg,
+                                   device=args.device)
+        step_fn, to_pipeline = built["fn"], built["to_pipeline"]
+        print(f"[train] pipeline {built['meta']}")
+
     def init_state():
-        p = model.init(0)
+        p = to_pipeline(model.init(0))
         print(f"[train] {cfg.arch_id}: {sum(t.numel() for t in leaves(p)) / 1e6:.2f}M params, "
               f"strategy={args.strategy}, device={model.device}")
         return p, adamw.init(p)
@@ -97,7 +114,7 @@ def main(argv=None):
                                     global_batch=args.batch, seed=rcfg.seed))
     tr = Trainer(TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                                ckpt_dir=args.ckpt_dir, log_every=10),
-                 make_step_fn(model, opt_cfg), init_state,
+                 step_fn, init_state,
                  lambda start: token_batches(pipe, start, model.device))
     out = tr.run()
     losses = out["losses"]

@@ -86,20 +86,32 @@ def _layer_train(cfg: ModelConfig, bp: dict, shared, x: torch.Tensor,
     return x
 
 
-def _scan_train(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                rcfg: RunConfig) -> torch.Tensor:
-    """Every layer over the full sequence; with ``rcfg.remat`` (and grad on)
-    each layer -- with the shared block that fires after it -- is
-    checkpointed, its activations recomputed in the backward (the
-    reference's ``jax.checkpoint`` of the scan body)."""
+def layers_train(cfg: ModelConfig, blocks: list, shared, x: torch.Tensor, rcfg: RunConfig,
+                 start: int = 0) -> torch.Tensor:
+    """``blocks`` (layers ``start``, ``start + 1``, ...) over the full
+    sequence; zamba2's shared block fires by the global layer index.  With
+    ``rcfg.remat`` (and grad on) each layer -- with the shared block that
+    fires after it -- is checkpointed, its activations recomputed in the
+    backward (the reference's ``jax.checkpoint`` of the scan body)."""
     remat = rcfg.remat and torch.is_grad_enabled()
-    shared = params.get("shared")
-    for idx, bp in enumerate(params["blocks"]):
+    for idx, bp in enumerate(blocks, start):
         if remat:
             x = checkpoint(_layer_train, cfg, bp, shared, x, idx, use_reentrant=False)
         else:
             x = _layer_train(cfg, bp, shared, x, idx)
     return x
+
+
+def head_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
+              tokens: torch.Tensor) -> torch.Tensor:
+    """Final norm, head and the mean next-token CE of hidden states ``x``
+    (B, T, D) against ``tokens`` (B, T)."""
+    h = rmsnorm(params["final_ln"], x)[:, :-1]
+    if cfg.tie_embeddings:        # head_logits' scaling: on h, not on a copy of the table
+        h, w = h * cfg.d_model ** -0.5, params["embed"]["tok"].t()
+    else:
+        w = params["head"]["w"]
+    return chunked_xent(h, w, tokens[:, 1:], cfg.vocab_size)
 
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
@@ -113,13 +125,8 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     cdt = dtype_of(rcfg.compute_dtype)
     tokens = batch["tokens"].long()
     x = embed_tokens(params["embed"], tokens, cdt)
-    x = _scan_train(cfg, params, x, rcfg)
-    h = rmsnorm(params["final_ln"], x)[:, :-1]
-    if cfg.tie_embeddings:        # head_logits' scaling: on h, not on a copy of the table
-        h, w = h * cfg.d_model ** -0.5, params["embed"]["tok"].t()
-    else:
-        w = params["head"]["w"]
-    ce = chunked_xent(h, w, tokens[:, 1:], cfg.vocab_size)
+    x = layers_train(cfg, params["blocks"], params.get("shared"), x, rcfg)
+    ce = head_loss(cfg, params, x, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce, {"ce": ce, "aux": aux}
 

@@ -349,6 +349,27 @@ def test_rwkv6_kernel_bf16_holds_to_the_recurrence_under_strong_decay(cuda_devic
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dk", [64, 32])
+def test_rwkv6_kernel_bf16_holds_a_large_state_whose_out_rows_cancel(cuda_device, dk):
+    """Decay near 1 and k, v of one sign grow the state to ~2e3 over 512
+    tokens while each r row sums to ~0, so out rows cancel to O(1), as in
+    rwkv6-1.6b after a few training steps: the tensor-core body against the
+    token recurrence within 2e-2 x max(1, |ref|).  Its inter term needs
+    fp32's 24 bits for this (hi + lo bf16 operands are not enough)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(dk)
+    shape = (1, 512, 2, dk)
+    x = _rand(gen, torch.float32, *shape)
+    r = (x - x.mean(-1, keepdim=True)).bfloat16()
+    k, v = ((2 + 0.5 * _rand(gen, torch.float32, *shape)).bfloat16() for _ in range(2))
+    lw = -0.002 * torch.rand(shape, generator=gen, device=cuda_device)
+    u = 0.3 * _rand(gen, torch.float32, 2, dk)
+    got = krwkv.rwkv6_cuda(r, k, v, lw, u)
+    rec, _ = rwkv6_scan_plain(r.float(), k.float(), v.float(), torch.exp(lw), u)
+    assert rec.abs().max() > 100
+    _assert_close(got, rec, torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_rwkv6_kernel_takes_rows_that_are_not_16_byte_aligned(cuda_device):
     """Contiguous inputs that start one element past an aligned address take
     the bodies' element-by-element staging; the same values as aligned ones."""
