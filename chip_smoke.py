@@ -99,7 +99,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
    over 2 stages in 4 microbatches of 2 x 512 tokens, 10 steps through the
    Trainer: a falling held-out loss, the ticks and bubble, boundary bytes
    per tick, the stash, the peak memory and the step time beside the
-   unsplit step's.
+   unsplit step's;
+16. ``serve_spec`` (run after ``agent``, on phase 6's weights): speculative
+   decoding through ``SpecEngine``, k 3, the frames through the codec, each
+   run beside a plain witness engine on the same requests (both prefill
+   each request alone at its exact length, so admission timing changes no
+   shape): (a) granite-8b with its 4-layer prefix drafting, phase 6's 16
+   requests half stochastic: tokens bit-equal to the witness's, launches
+   exactly those of the prefills, (k + 1) target and (1 + k) draft steps a
+   round (also one steady round alone), acceptance, tokens a round, tok/s
+   and TPOT beside the witness's, frame bytes each way, a profiled round;
+   (a2) the prefix under a random head of its own, which misses: the same
+   tokens and exact launches; (b) the target as its own draft: acceptance
+   exactly 1.0 and the witness's tokens; (c) granite-8b's full width cut
+   to 4 layers, fp32, a 2-layer prefix draft and that prefix under its own
+   head, over a paged pool of 64 blocks with the prefix cache: the paged
+   witness's tokens, preemptions, every block back after the drain; (d) rwkv6-1.6b (24 layers, bf16) over the recurrent backend on
+   both sides, a 2-layer prefix draft, 8 of phase 10's requests: the
+   recurrent witness's tokens, launches with rollback's replayed steps, the
+   stash's bytes and the rollbacks' ms a round.  In (a), (c) and (d) each
+   kernel of the path is held against its plain version at its shapes.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
@@ -114,7 +133,9 @@ RMSNorm and no decode kernel, the zamba2
 training path the SSD kernel (42 times a forward, 84 a step), flash (7
 and 14) and RMSNorm and no decode kernel, a pipelined training step
 exactly each layer's kernels once per forward its (stage, microbatch)
-runs (``pp_launches``) and no decode kernel.
+runs (``pp_launches``) and no decode kernel, a speculative path exactly
+its prefills' and its target and draft steps' launches, rollback's
+replayed steps included.
 
 The line before the last is a JSON object of per-kernel numbers, the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -165,10 +186,10 @@ MODEL_TOL = 1e-4
 BF16_MODEL_TOL = 0.25
 
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
-          "serve_stages", "agent", "serve_rwkv", "serve_hybrid", "train", "train_hybrid",
-          "resnet", "train_pp")
+          "serve_stages", "agent", "serve_spec", "serve_rwkv", "serve_hybrid", "train",
+          "train_hybrid", "resnet", "train_pp")
 # the phases that serve full-width granite-8b, one set of weights between them
-GRANITE_PHASES = ("serve", "serve_paged", "serve_stages", "agent")
+GRANITE_PHASES = ("serve", "serve_paged", "serve_stages", "agent", "serve_spec")
 OPT_IN = ("lr_probe", "baseline")
 
 # the kernels each serving path must launch; the other decode kernel must not
@@ -1499,7 +1520,7 @@ def drive_exact_serve(model, params, prompts, max_new: int, max_batch: int,
     PipelineEngine.  Its tokens by rid."""
     from repro_torch.serving.engine import ServeEngine
     eng = ServeEngine(model, params, max_batch=max_batch, max_len=max_len,
-                      prefill_buckets=range(1, max_len + 1), max_prefill_batch=1)
+                      **exact_prefill(max_len))
     eng.submit(prompts[0][:20], max_new=4)                         # warm-up
     eng.run_until_drained()
     eng.reset_stats()
@@ -1792,6 +1813,458 @@ def phase_agent(results: dict, model, params) -> None:
         entry.setdefault("served_shapes", {})["agent"] = dict(
             rec, shapes=[[list(d) for d in s] for s in rec["shapes"]])
     add_launches(results, counts, "agent")
+
+
+# ---------------------------------------------------------------------------
+# phase serve_spec: speculative decoding on granite-8b and rwkv6-1.6b
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+
+
+def prefix_draft(model, params, n_layers: int):
+    """The first ``n_layers`` layers of ``model`` (with its embedding, final
+    norm and head) as a draft model on its device; the params share the
+    target's tensors, so the draft adds no weight bytes."""
+    from repro_torch.models.api import build_model
+    draft = build_model(dataclasses.replace(model.cfg, n_layers=n_layers), model.rcfg,
+                        device=model.device)
+    dparams = {k: v for k, v in params.items() if k != "blocks"}
+    dparams["blocks"] = params["blocks"][:n_layers]
+    return draft, dparams
+
+
+def own_head(draft, dparams: dict, seed: int = 1):
+    """``draft`` untied, under a head of its own drawn from ``seed`` at the
+    embedding table's scale: its proposals miss the target's samples, so
+    every round rolls back.  (On random weights a tied-embedding model's
+    logits are dominated by its input token's own row, so a prefix of it
+    proposes what the target samples.)"""
+    from repro_torch.models.api import build_model
+    table = dparams["embed"]["tok"]
+    gen = torch.Generator(device=table.device).manual_seed(seed)
+    w = torch.randn((table.shape[1], table.shape[0]), generator=gen, device=table.device)
+    head = (w * table.float().std()).to(table.dtype)
+    model = build_model(dataclasses.replace(draft.cfg, tie_embeddings=False), draft.rcfg,
+                        device=draft.device)
+    return model, {**dparams, "head": {"w": head}}
+
+
+def exact_prefill(max_len: int) -> dict:
+    """Engine kwargs that prefill each request alone at its exact length: a
+    request's prefill then has the same shapes whenever it is admitted, so a
+    spec engine and its plain witness (which admit on other steps) prefill
+    it alike, bit for bit."""
+    return dict(prefill_buckets=range(1, max_len + 1), max_prefill_batch=1)
+
+
+def spec_samplings(n: int) -> list:
+    """Even requests greedy, odd ones stochastic (temperature 0.8, top_k 50,
+    top_p 0.95, one seed each)."""
+    from repro_torch.serving.sampling import SamplingParams
+    return [None if i % 2 == 0 else
+            SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=100 + i)
+            for i in range(n)]
+
+
+def count_spec_work(eng) -> dict:
+    """Count a SpecEngine's target windows, draft windows (each followed by
+    k single draft steps) and draft prefills, by wrapping the backends'
+    verbs; returns the live counts, with the replayed steps of recurrent
+    backends beside them (``replays``)."""
+    work = dict(target_windows=0, draft_windows=0, draft_prefills=0)
+
+    def counted(fn, key):
+        def call(*args, **kw):
+            work[key] += 1
+            return fn(*args, **kw)
+        return call
+    eng.backend.verify_step = counted(eng.backend.verify_step, "target_windows")
+    eng.draft_backend.verify_step = counted(eng.draft_backend.verify_step, "draft_windows")
+    eng.draft_backend.prefill_paste = counted(eng.draft_backend.prefill_paste, "draft_prefills")
+    return work
+
+
+def reset_spec_work(eng, work: dict) -> None:
+    work.update(dict.fromkeys(work, 0))
+    for backend in (eng.backend, eng.draft_backend):
+        if hasattr(backend, "replay_steps"):
+            backend.replay_steps = 0
+
+
+def spec_want(eng, work: dict, target: tuple, draft: tuple) -> dict:
+    """The launches by kernel a SpecEngine's counted work must have made:
+    its target prefill dispatches and (k + 1) target steps a window plus the
+    steps rollback replayed, its draft prefills and (1 + k) draft steps a
+    window plus the draft's replays; ``target`` and ``draft`` are each
+    model's launches of one prefill dispatch and one decode step."""
+    k = eng.spec_k
+    n_target = (eng.metrics.prefill_dispatches,
+                (k + 1) * work["target_windows"] + getattr(eng.backend, "replay_steps", 0))
+    n_draft = (work["draft_prefills"],
+               (1 + k) * work["draft_windows"] + getattr(eng.draft_backend, "replay_steps", 0))
+    return spec_launches(target, draft, n_target, n_draft)
+
+
+def serve_run(eng, prompts, samplings, max_new: int, time_rollbacks: bool = False) -> dict:
+    """Warm ``eng`` with one short request, then serve ``prompts`` to the
+    end (a SpecEngine round by round): tokens in submit order, wall s (host
+    clock, synchronised), metrics snapshot, the reports of the rounds that
+    ran and the work counted from the end of the warm-up (spec engines),
+    and the launches by kernel.  With ``time_rollbacks`` every rollback of
+    the served run is timed, synchronised before and after (which slows the
+    run): their seconds in total."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.speculative import SpecEngine
+    spec = isinstance(eng, SpecEngine)
+    work = count_spec_work(eng) if spec else {}
+    with torch.no_grad():
+        eng.submit(prompts[0][:20], max_new=4)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        if spec:
+            reset_spec_work(eng, work)
+        rollback_s = [0.0]
+        if time_rollbacks:
+            def timed(fn):
+                def call(slot, n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(slot, n)
+                    torch.cuda.synchronize()
+                    rollback_s[0] += time.perf_counter() - t0
+                return call
+            eng.backend.rollback = timed(eng.backend.rollback)
+            eng.draft_backend.rollback = timed(eng.draft_backend.rollback)
+        ops.reset_launch_counts()
+        reports = []
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new=max_new, sampling=s) for p, s in zip(prompts, samplings)]
+        for _ in range(100_000):
+            if not (eng.active() or eng.scheduler.depth):
+                break
+            if spec:
+                reports.append(eng.step_paced())
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    done = {r.rid: r.out_tokens for r in eng.finished}
+    if sorted(done) != sorted(rids) or any(len(done[r]) != max_new for r in rids):
+        raise AssertionError(f"{len(done)}/{len(rids)} requests finished with "
+                             f"{[len(t) for t in done.values()]} tokens")
+    return dict(tokens=[done[r] for r in rids], wall=wall, snap=eng.metrics_snapshot(),
+                reports=[r for r in reports if r.n_active], counts=counts, work=work,
+                rollback_s=rollback_s[0], n_tokens=len(rids) * max_new)
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def spec_launches(target: tuple, draft: tuple, n_target: tuple, n_draft: tuple) -> dict:
+    """Launches by kernel of ``n_target`` = (prefills, decode steps) of the
+    target and ``n_draft`` of the draft, from each model's launches of one
+    prefill dispatch and one decode step (``unsplit_launches``)."""
+    return {k: sum(per[k] * n for per, n in zip(target + draft, n_target + n_draft))
+            for k in target[0]}
+
+
+def spec_summary(run: dict, k: int) -> str:
+    reps, snap = run["reports"], run["snap"]
+    n = max(1, len(reps))
+    emitted = sum(r.emitted_tokens for r in reps)
+    return (f"{len(reps)} rounds, acceptance {snap.spec_acceptance_rate:.4f} "
+            f"({snap.spec_accepted_tokens} of {snap.spec_drafted_tokens} drafted), "
+            f"{emitted / n:.3f} tokens emitted a round "
+            f"({emitted / max(1, sum(r.n_active for r in reps)):.3f} a lane, of at most {k + 1}); "
+            f"{run['n_tokens']} tokens in {run['wall']:.3f} s = "
+            f"{run['n_tokens'] / run['wall']:.1f} tok/s, TTFT mean {snap.ttft.mean * 1e3:.1f} ms, "
+            f"TPOT mean {snap.tpot.mean * 1e3:.2f} ms; frames a round: draft -> target "
+            f"{sum(r.d2t_frame_bytes for r in reps) / n:.1f} B, target -> draft "
+            f"{sum(r.t2d_frame_bytes for r in reps) / n:.1f} B")
+
+
+def plain_summary(run: dict) -> str:
+    snap = run["snap"]
+    return (f"{run['n_tokens']} tokens in {run['wall']:.3f} s = "
+            f"{run['n_tokens'] / run['wall']:.1f} tok/s, {snap.steps} decode steps, TTFT mean "
+            f"{snap.ttft.mean * 1e3:.1f} ms, TPOT mean {snap.tpot.mean * 1e3:.2f} ms")
+
+
+def check_spec_kernels(tag: str, path: str, results: dict, make_engine, prompts, samplings,
+                       target: tuple, draft: tuple) -> None:
+    """Each kernel of a spec engine's path against its plain version at the
+    shapes the path gives it (``check_served_kernels``): a fresh engine from
+    ``make_engine()`` admits the two longest prompts and runs two rounds,
+    whose calls by kernel must be ``spec_want``'s."""
+    made = []
+
+    def drive():
+        eng = make_engine()
+        made.append((eng, count_spec_work(eng)))
+        for p, s in zip(prompts[-2:], samplings[-2:]):
+            eng.submit(p, max_new=8, sampling=s)
+        eng.step_paced()
+        eng.step_paced()
+    with torch.no_grad():
+        served = check_served_kernels(tag, drive, lambda: spec_want(*made[0], target, draft))
+    log(f"{tag} kernels at the spec path's shapes (B=1 exact prefills of "
+        f"{[len(p) for p in prompts[-2:]]} tokens and the draft's one shorter, two rounds of "
+        f"windows and draft steps) against their plain versions, worst margin (error / "
+        f"limit): " + "; ".join(f"{k} {v['calls']} calls, first two inputs {v['shapes']}, "
+                                f"{v['margin']:.3f}" for k, v in served.items()))
+    for name, rec in served.items():
+        entry = results.setdefault(name, {"name": name})
+        entry.setdefault("served_shapes", {})[path] = dict(
+            rec, shapes=[[list(d) for d in s] for s in rec["shapes"]])
+
+
+def phase_serve_spec(results: dict, model, params, n_requests: int = 16,
+                     max_new: int = 32) -> None:
+    """Speculative decoding (``SpecEngine``) on one card, in four runs:
+    (a) full-width granite-8b (bf16) with its 4-layer prefix as draft, k 3,
+    frames through the codec, phase 6's 16 requests half stochastic: tokens
+    bit-equal to a plain ServeEngine's (both prefill each request alone at
+    its exact length), launches exactly those of the prefills and of (k + 1)
+    target and (1 + k) draft steps a round, one round profiled; (a2) the
+    prefix under its own head (``own_head``), whose proposals miss: the same
+    tokens and launches; (b) the target as its own draft: acceptance exactly
+    1.0 and the same tokens;
+    (c) granite-8b's full width cut to 4 layers, fp32, 2-layer prefix draft,
+    over a paged pool with the prefix cache small enough to preempt: tokens
+    equal the paged witness's, every block back after the drain; (d)
+    rwkv6-1.6b (24 layers, bf16) over the recurrent backend on both sides,
+    2-layer prefix draft: tokens equal the recurrent witness's, the stash's
+    bytes and the rollback replays' time a round.  In (a), (c) and (d) each
+    kernel of the path is held against its plain version at its shapes."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.speculative import SpecEngine
+    tag, k = "[serve-spec]", SPEC_K
+    cfg = model.cfg
+    max_batch, max_len = 8, 1024
+    exact = exact_prefill(max_len)
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, size=20)                 # phase 6's warm-up draw
+    lengths = np.linspace(16, 600, n_requests).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
+    samp = spec_samplings(n_requests)
+    draft, dparams = prefix_draft(model, params, 4)
+
+    # (a) dense, the 4-layer prefix drafting
+    witness = serve_run(ServeEngine(model, params, max_batch, max_len, **exact), prompts, samp,
+                        max_new)
+    eng = SpecEngine(model, params, draft, dparams, max_batch, max_len, spec_k=k, **exact)
+    run = serve_run(eng, prompts, samp, max_new)
+    if run["tokens"] != witness["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(run["tokens"], witness["tokens"])) if a != b]
+        raise AssertionError(f"{tag} (a) requests {bad} differ from the plain engine's tokens")
+    snap = run["snap"]
+    tgt = unsplit_launches(model, params, prompts[0], max_batch, max_len)
+    drf = unsplit_launches(draft, dparams, prompts[0], max_batch, max_len)
+    rounds, work = len(run["reports"]), run["work"]
+    if (snap.preemptions or not rounds == snap.spec_rounds == work["target_windows"]
+            == work["draft_windows"] or work["draft_prefills"] != n_requests):
+        raise AssertionError(f"{tag} (a) {snap.preemptions} preemptions, {rounds} rounds, "
+                             f"{snap.spec_rounds} in the metrics, work {work}")
+    check_launches(run["counts"], spec_want(eng, work, tgt, drf),
+                   f"{tag} (a) run of {snap.prefill_dispatches} target and {n_requests} draft "
+                   f"prefills, {rounds} rounds")
+    log(f"{tag} (a) granite-8b {cfg.n_layers} layers bf16, draft its {draft.cfg.n_layers}-layer "
+        f"prefix, k {k}, max_batch {max_batch}, max_len {max_len}, {n_requests} requests "
+        f"({lengths.min()}-{lengths.max()} prompt tokens, max_new {max_new}, 8 greedy, 8 "
+        f"stochastic): tokens bit-equal to the plain engine's; {spec_summary(run, k)}")
+    log(f"{tag} (a) the plain witness: {plain_summary(witness)}")
+    log(f"{tag} (a) launches {nonzero(run['counts'])} = {snap.prefill_dispatches} target "
+        f"prefills x {nonzero(tgt[0])} + {n_requests} draft prefills x {nonzero(drf[0])} + "
+        f"{rounds} rounds x ({k + 1} target steps x {nonzero(tgt[1])} + {1 + k} draft steps x "
+        f"{nonzero(drf[1])})")
+    total = dict(run["counts"])
+
+    # one steady round alone (8 lanes, no admission), then a profiled one
+    with torch.no_grad():
+        for p, s in zip(prompts[:max_batch], samp[:max_batch]):
+            eng.submit(p[:64], max_new=64, sampling=s)
+        eng.step_paced()
+        ops.reset_launch_counts()
+        rep = eng.step_paced()
+        one = ops.launch_counts()
+        want = spec_launches(tgt, drf, (0, k + 1), (0, 1 + k))
+        if rep.n_active != max_batch or rep.target_prefill_tokens or rep.draft_prefill_tokens:
+            raise AssertionError(f"{tag} steady round {rep}")
+        check_launches(one, want, f"{tag} one round of {k + 1} target and {1 + k} draft steps")
+        log(f"{tag} (a) one round at batch {max_batch}: launches {nonzero(one)} = {k + 1} target "
+            f"steps x {nonzero(tgt[1])} + {1 + k} draft steps x {nonzero(drf[1])}; "
+            f"{rep.emitted_tokens} tokens emitted")
+        profile_step(eng.step_paced, f"spec round (k {k}, batch {max_batch}, granite-8b + "
+                                     f"{draft.cfg.n_layers}-layer draft)")
+        eng.run_until_drained()
+    check_spec_kernels(f"{tag} (a)", "spec_dense", results,
+                       lambda: SpecEngine(model, params, draft, dparams, max_batch, max_len,
+                                          spec_k=k, **exact),
+                       prompts, samp, tgt, drf)
+    del eng
+
+    # (a2) the same prefix under its own head: proposals miss, dense lanes
+    # roll back every round
+    mis, mparams = own_head(draft, dparams)
+    eng = SpecEngine(model, params, mis, mparams, max_batch, max_len, spec_k=k, **exact)
+    run = serve_run(eng, prompts, samp, max_new)
+    snap = run["snap"]
+    if run["tokens"] != witness["tokens"] or not snap.spec_acceptance_rate < 1.0:
+        raise AssertionError(f"{tag} (a2) acceptance {snap.spec_acceptance_rate}, tokens equal "
+                             f"the witness's: {run['tokens'] == witness['tokens']}")
+    check_launches(run["counts"], spec_want(eng, run["work"], tgt, drf),
+                   f"{tag} (a2) run, work {run['work']}")
+    log(f"{tag} (a2) the prefix under its own random head (a misaligned draft): tokens "
+        f"bit-equal to the plain engine's, launches exact; {spec_summary(run, k)}")
+    total = {n: total.get(n, 0) + c for n, c in run["counts"].items()}
+    del eng
+
+    # (b) the target drafts for itself: every proposal must be accepted
+    eng = SpecEngine(model, params, model, params, max_batch, max_len, spec_k=k, **exact)
+    run = serve_run(eng, prompts, samp, max_new)
+    snap = run["snap"]
+    if snap.spec_acceptance_rate != 1.0 or run["tokens"] != witness["tokens"]:
+        raise AssertionError(f"{tag} (b) aligned draft: acceptance {snap.spec_acceptance_rate} "
+                             f"({snap.spec_accepted_tokens} of {snap.spec_drafted_tokens}), "
+                             f"tokens equal the witness's: {run['tokens'] == witness['tokens']}")
+    log(f"{tag} (b) the target as its own draft: acceptance exactly 1.0 on greedy and "
+        f"stochastic lanes, tokens bit-equal to the plain engine's; {spec_summary(run, k)}")
+    total = {n: total.get(n, 0) + c for n, c in run["counts"].items()}
+    del eng
+    torch.cuda.empty_cache()
+
+    total = spec_paged(results, total)
+    total = spec_recurrent(results, total)
+    add_launches(results, total, "spec")
+
+
+def spec_paged(results: dict, total: dict, n_requests: int = 16, max_new: int = 32,
+               n_blocks: int = 64) -> dict:
+    """Run (c): granite-8b's full width cut to 4 layers, fp32 (TF32 off), a
+    2-layer prefix draft, then the prefix under its own head (``own_head``:
+    rollbacks free blocks every round); the target over a paged pool of
+    ``n_blocks`` 16-token blocks with the prefix cache, too small for 8
+    lanes' growth.  Tokens equal a paged ServeEngine's on the same pool;
+    each spec engine preempts and gives every block back."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.speculative import SpecEngine
+    tag, k = "[serve-spec] (c)", SPEC_K
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=4)
+    model = build_model(cfg, RunConfig(param_dtype="float32", compute_dtype="float32",
+                                       remat=False), device="cuda")
+    params = model.init(0)
+    draft, dparams = prefix_draft(model, params, 2)
+    max_batch, max_len, bs = 8, 1024, 16
+    exact = exact_prefill(max_len)
+
+    def config():
+        return EngineConfig(kv_blocks=n_blocks, kv_block_size=bs, prefix_cache=True)
+    rng = np.random.default_rng(1)
+    lengths = np.linspace(16, 600, n_requests).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
+    samp = spec_samplings(n_requests)
+    witness = serve_run(ServeEngine(model, params, max_batch, max_len, config=config(), **exact),
+                        prompts, samp, max_new)
+    log(f"{tag} the plain witness: {plain_summary(witness)}; {witness['snap'].preemptions} "
+        f"preemptions")
+    tgt = unsplit_launches(model, params, prompts[0], max_batch, max_len)
+    drf = unsplit_launches(draft, dparams, prompts[0], max_batch, max_len)
+    paged = {**tgt[1], "decode_attention": 0,
+             "paged_decode_attention": tgt[1]["decode_attention"]}
+    for what, (d, dp) in (("its 2-layer prefix", (draft, dparams)),
+                          ("the prefix under its own random head", own_head(draft, dparams))):
+        eng = SpecEngine(model, params, d, dp, max_batch, max_len, spec_k=k, config=config(),
+                         **exact)
+        run = serve_run(eng, prompts, samp, max_new)
+        snap = run["snap"]
+        if run["tokens"] != witness["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(run["tokens"], witness["tokens"]))
+                   if a != b]
+            raise AssertionError(f"{tag} {what}: requests {bad} differ from the paged "
+                                 f"engine's tokens")
+        if (snap.preemptions < 1 or eng.backend.blocks_in_use != 0
+                or (d is not draft and not snap.spec_acceptance_rate < 1.0)):
+            raise AssertionError(f"{tag} {what}: {snap.preemptions} preemptions, "
+                                 f"{eng.backend.blocks_in_use} blocks in use after the drain, "
+                                 f"acceptance {snap.spec_acceptance_rate}")
+        check_launches(run["counts"], spec_want(eng, run["work"], (tgt[0], paged), drf),
+                       f"{tag} {what}: run, work {run['work']}")
+        log(f"{tag} granite-8b full width cut to {cfg.n_layers} layers, fp32, draft {what}, "
+            f"paged pool of {n_blocks} blocks of {bs} with the prefix cache: tokens equal the "
+            f"paged plain engine's; {snap.preemptions} preemptions, {snap.resumes} resumes, "
+            f"{snap.prefill_skipped} full hits, {snap.cow_splits} COW splits, prefix hits "
+            f"{snap.prefix_hit_tokens} of {snap.prefix_query_tokens} tokens, blocks peak "
+            f"{snap.kv_blocks_peak}, {eng.backend.blocks_in_use} in use after the drain; "
+            f"{spec_summary(run, k)}; launches {nonzero(run['counts'])}")
+        total = {n: total.get(n, 0) + c for n, c in run["counts"].items()}
+    check_spec_kernels(tag, "spec_paged", results,
+                       lambda: SpecEngine(model, params, draft, dparams, max_batch, max_len,
+                                          spec_k=k, config=config(), **exact),
+                       prompts, samp, (tgt[0], paged), drf)
+    return total
+
+
+def spec_recurrent(results: dict, total: dict, n_requests: int = 8, max_new: int = 32) -> dict:
+    """Run (d): rwkv6-1.6b at full width and depth, bf16, the recurrent
+    backend on both sides, its 2-layer prefix drafting; 8 of phase 10's
+    requests, half stochastic.  Tokens equal the plain recurrent engine's;
+    the stash's bytes and the rollbacks' time (replays and pastes, CUDA
+    synchronised) a round."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.speculative import SpecEngine
+    tag, k = "[serve-spec] (d)", SPEC_K
+    cfg = get_config("rwkv6-1.6b")
+    model = build_model(cfg, RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16",
+                                       remat=False), device="cuda")
+    params = model.init(0)
+    draft, dparams = prefix_draft(model, params, 2)
+    max_batch, max_len = 8, 1024
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, size=20)                 # phase 10's warm-up draw
+    lengths = np.linspace(16, 600, 2 * n_requests).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths][1::2]
+    lengths = lengths[1::2]
+    samp = spec_samplings(n_requests)
+    witness = serve_run(ServeEngine(model, params, max_batch, max_len), prompts, samp, max_new)
+    eng = SpecEngine(model, params, draft, dparams, max_batch, max_len, spec_k=k)
+    run = serve_run(eng, prompts, samp, max_new, time_rollbacks=True)
+    snap = run["snap"]
+    if eng.backend.name != "recurrent" or eng.draft_backend.name != "recurrent":
+        raise AssertionError(f"{tag} backends {eng.backend.name}, {eng.draft_backend.name}")
+    if run["tokens"] != witness["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(run["tokens"], witness["tokens"])) if a != b]
+        raise AssertionError(f"{tag} requests {bad} differ from the recurrent engine's tokens")
+    tgt = unsplit_launches(model, params, prompts[0], max_batch, max_len)
+    drf = unsplit_launches(draft, dparams, prompts[0], max_batch, max_len)
+    rounds = len(run["reports"])
+    rt, rd = eng.backend.replay_steps, eng.draft_backend.replay_steps
+    check_launches(run["counts"], spec_want(eng, run["work"], tgt, drf),
+                   f"{tag} run, work {run['work']}, replays {rt} and {rd}")
+    log(f"{tag} rwkv6-1.6b {cfg.n_layers} layers bf16, recurrent backend on both sides, draft "
+        f"its {draft.cfg.n_layers}-layer prefix, {n_requests} requests ({lengths.min()}-"
+        f"{lengths.max()} prompt tokens, half stochastic): tokens bit-equal to the recurrent "
+        f"plain engine's; {spec_summary(run, k)}")
+    log(f"{tag} stash a round: target {eng.backend.stash_bytes} B + draft "
+        f"{eng.draft_backend.stash_bytes} B (device clones); rollbacks "
+        f"{run['rollback_s'] * 1e3 / max(1, rounds):.3f} ms a round (replays of {rt} target and "
+        f"{rd} draft steps in {rounds} rounds, and the pastes; each rollback synchronised, "
+        f"which also slows the run's tok/s); the plain witness: {plain_summary(witness)}; "
+        f"launches {nonzero(run['counts'])}")
+    del eng
+    check_spec_kernels(tag, "spec_rwkv", results,
+                       lambda: SpecEngine(model, params, draft, dparams, max_batch, max_len,
+                                          spec_k=k),
+                       prompts, samp, tgt, drf)
+    return {n: total.get(n, 0) + c for n, c in run["counts"].items()}
 
 
 def phase_serve_recurrent(results: dict, arch: str, path: str, n_requests: int = 16,
@@ -3099,6 +3572,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "agent" in phases:
         phase_agent(results, *full)
+    if "serve_spec" in phases:
+        torch.cuda.empty_cache()
+        phase_serve_spec(results, *full)
     del full
     torch.cuda.empty_cache()
     if "serve_rwkv" in phases:

@@ -46,7 +46,16 @@ class DecodeState:
     cache, tokens, block_tables)`` are the paged layout's cache constructor
     and decode step (:func:`repro_torch.models.lm.init_pool_cache` /
     :func:`~repro_torch.models.lm.lm_decode_step_pool`); ``poolable`` says
-    whether they exist."""
+    whether they exist.
+
+    ``window_step(params, cache, tokens (B, W))`` and its pooled twin
+    ``pool_window_step(params, cache, tokens, block_tables)`` run W
+    sequential decode steps and return the logits after each, (B, W, Vp):
+    the speculative verify entry points.  Each is a loop of the very same
+    single-step call, so its outputs are bitwise those of W separate steps
+    (:func:`repro_torch.models.lm.lm_decode_window`).  ``window_step`` is
+    set for every family: the port's ``lm_decode_step`` serves rwkv and
+    zamba2 too, so their window is the same loop."""
 
     kind: str
     batched_prefill: Optional[
@@ -54,6 +63,11 @@ class DecodeState:
                  Tuple[torch.Tensor, dict]]] = None
     pool_init: Optional[Callable[[int, int, int], dict]] = None
     pool_step: Optional[
+        Callable[[dict, dict, torch.Tensor, torch.Tensor],
+                 Tuple[torch.Tensor, dict]]] = None
+    window_step: Optional[
+        Callable[[dict, dict, torch.Tensor], Tuple[torch.Tensor, dict]]] = None
+    pool_window_step: Optional[
         Callable[[dict, dict, torch.Tensor, torch.Tensor],
                  Tuple[torch.Tensor, dict]]] = None
 
@@ -98,7 +112,7 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     # pad tokens in and is not position-addressed; chunked_local's ring
     # buffer is dense-span specific
     recurrent = is_recurrent(cfg)
-    batched = pool_init = pool_step = None
+    batched = pool_init = pool_step = pool_window = None
     if cfg.attention == "full" and not recurrent:
         def batched(p, b, ln, ml):
             return LM.lm_prefill_padded(cfg, p, b, ln, rcfg, ml)
@@ -109,6 +123,9 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
         def pool_step(p, c, t, bt):
             return LM.lm_decode_step_pool(cfg, p, c, t, bt, rcfg)
 
+        def pool_window(p, c, t, bt):
+            return LM.lm_decode_window_pool(cfg, p, c, t, bt, rcfg)
+
     return Model(
         cfg=cfg, rcfg=rcfg, device=device,
         init=init,
@@ -118,7 +135,10 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
         init_cache=lambda bsz, ml: LM.init_cache(cfg, bsz, ml, dt, device),
         decode_state=DecodeState(kind="recurrent" if recurrent else "attention",
                                  batched_prefill=batched, pool_init=pool_init,
-                                 pool_step=pool_step),
+                                 pool_step=pool_step,
+                                 window_step=lambda p, c, t: LM.lm_decode_window(
+                                     cfg, p, c, t, rcfg),
+                                 pool_window_step=pool_window),
     )
 
 

@@ -233,6 +233,25 @@ def lm_decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Te
     return lm_stage_decode_step(cfg, params, cache, tokens, rcfg)
 
 
+def lm_decode_window(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
+                     rcfg: RunConfig) -> Tuple[torch.Tensor, dict]:
+    """W sequential decode steps (speculative verify).  tokens: (B, W) int,
+    W consecutive next-token inputs per lane.  Returns (logits (B, W, Vp),
+    the logits after each token, and the cache advanced by W positions).
+
+    A Python loop of the very same :func:`lm_decode_step` call, not a
+    parallel multi-token attention window: a parallel window changes the
+    reduction shapes, and with them the rounding, which breaks the bitwise
+    greedy identity speculative verification rests on.  So the window's
+    logits and cache are bitwise those of W single steps, for every family
+    :func:`lm_decode_step` serves (rwkv6 and zamba2 included)."""
+    out = []
+    for j in range(tokens.shape[1]):
+        logits, cache = lm_decode_step(cfg, params, cache, tokens[:, j:j + 1], rcfg)
+        out.append(logits)
+    return torch.stack(out, dim=1), cache
+
+
 def _decode_step_recurrent(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
                            rcfg: RunConfig) -> Tuple[torch.Tensor, dict]:
     """:func:`lm_decode_step` of rwkv and zamba2: every layer by its token
@@ -275,6 +294,20 @@ def lm_decode_step_pool(cfg: ModelConfig, params: dict, cache: dict, tokens: tor
     x = rmsnorm(params["final_ln"], x)
     logits = head_logits(cfg, params, x[:, -1])
     return logits, {"layers": cache["layers"], "pos": pos + 1}
+
+
+def lm_decode_window_pool(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
+                          block_tables: torch.Tensor,
+                          rcfg: RunConfig) -> Tuple[torch.Tensor, dict]:
+    """W sequential pooled decode steps (paged verify): the contract and the
+    bitwise rationale of :func:`lm_decode_window`, looping
+    :func:`lm_decode_step_pool` over one set of block tables."""
+    out = []
+    for j in range(tokens.shape[1]):
+        logits, cache = lm_decode_step_pool(cfg, params, cache, tokens[:, j:j + 1],
+                                            block_tables, rcfg)
+        out.append(logits)
+    return torch.stack(out, dim=1), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,

@@ -18,6 +18,18 @@ and speaks only its verbs (``slot`` is a lane index):
   a decode step (grow, COW-split, uncache); ``False`` = out of memory, the
   engine preempts a victim and retries.
 * ``step(params, tokens, active)`` -- advance every lane one token.
+* ``append_tokens(slot, toks)`` / ``verify_step(params, tokens, active)`` /
+  ``rollback(slot, n)`` -- speculative verify: reserve write capacity for
+  ``len(toks)`` consecutive positions (paged grows / COW-splits per
+  position, all or nothing; ``False`` = pool exhausted), advance every lane
+  W tokens and return the logits after each (B, W, Vp), then un-write the
+  last ``n`` of a lane's positions after partial acceptance (dense and
+  paged move the position back; recurrent state is not
+  position-addressed, so the backend replays the kept prefix from a copy
+  of the pre-window state).
+* ``reset_lane(slot)`` -- return a lane to the empty-stream state (the
+  draft side of a speculative pair admits 1-token prompts with nothing to
+  prefill).
 * ``snapshot(slot)`` / ``restore(slot, snap)`` -- preemption support: a
   layout with a small constant-size state returns a host copy of the lane,
   and a preempted request resumes from it without recompute; ``None`` /
@@ -29,9 +41,7 @@ Implementations: :class:`DenseBackend` (one ``max_len``-wide lane per
 slot), :class:`PagedBackend` (block-pooled KV with refcounted
 copy-on-write prefix caching over :class:`BlockManager`) and
 :class:`RecurrentBackend` (rwkv and zamba2: constant-footprint state lanes,
-admission charged in state units, snapshot/restore preemption).  The
-speculative verbs (``append_tokens`` / ``verify_step`` / ``rollback`` /
-``reset_lane``) come with speculative decoding (ROADMAP §1 item 7).
+admission charged in state units, snapshot/restore preemption).
 
 Where the reference's jitted helpers return updated caches, the backends
 here update the cache tensors on the model's device in place.
@@ -198,6 +208,32 @@ class DenseBackend(CacheBackend):
         out, self.cache = self.model.decode_step(params, self.cache, x.to(self.model.device))
         return out
 
+    # -- speculative verify plumbing -----------------------------------
+    def append_tokens(self, slot: int, toks: Sequence[int]) -> bool:
+        return True          # lanes are max_len wide from the start
+
+    def verify_step(self, params, tokens: np.ndarray, active: np.ndarray) -> torch.Tensor:
+        """W sequential decode steps; ``tokens`` (B, W) ids, returns the
+        logits after each (B, W, Vp).  Every lane's position advances by W
+        (an idle lane's garbage is reset by its next paste, as in ``step``)."""
+        x = torch.as_tensor(tokens, dtype=torch.int64).to(self.model.device)
+        out, self.cache = self.model.decode_state.window_step(params, self.cache, x)
+        return out
+
+    def rollback(self, slot: int, n: int) -> None:
+        """Un-write the lane's last ``n`` positions.  K/V is addressed by
+        position: moving ``pos`` back is enough, the stale entries are
+        masked out of every read and overwritten by the next write."""
+        if n <= 0:
+            return
+        if self.model.decode_state.kind == "recurrent":
+            raise RuntimeError("dense lanes cannot roll back recurrent state; use "
+                               "backend='recurrent'")
+        self.cache["pos"][slot] -= n
+
+    def reset_lane(self, slot: int) -> None:
+        self.cache["pos"][slot] = 0
+
     def release(self, slot: int, tokens: Optional[Sequence[int]] = None) -> None:
         pass                 # lane garbage is overwritten by the next paste
 
@@ -219,10 +255,87 @@ class RecurrentBackend(DenseBackend):
     def __init__(self, model: Model, n_lanes: int, max_len: int):
         super().__init__(model, n_lanes, max_len)
         self.state_units = sum(t.numel() for t in lane_leaves(self.cache, 0).values())
+        # speculative rollback: a device copy of the pre-window cache, the
+        # window's tokens (extended by the single steps taken after it) and
+        # params, and the replayed caches memoised per kept length (lanes
+        # rolling back the same amount after one round share one replay)
+        self._stash: Optional[dict] = None
+        self._stash_tokens: Optional[np.ndarray] = None
+        self._stash_params = None
+        self._replay_memo: Dict[int, dict] = {}
+        self.replay_steps = 0        # single decode steps rollback replayed, in total
 
     def token_footprint(self, n_ctx: int, max_new: int,
                         tokens: Optional[Sequence[int]] = None) -> int:
         return self.state_units     # independent of prompt and generation length
+
+    def step(self, params, tokens, active: np.ndarray) -> torch.Tensor:
+        # single steps taken after a verify window (the draft side of a
+        # speculative pair drafts this way) are part of the replayable
+        # history; memoised prefixes stay valid, appending columns never
+        # changes tokens[:, :keep]
+        if self._stash_tokens is not None:
+            self._stash_tokens = np.concatenate([self._stash_tokens, np.asarray(tokens)],
+                                                axis=1)
+        return super().step(params, tokens, active)
+
+    @staticmethod
+    def _clone(cache: dict) -> dict:
+        """A copy of every leaf: the decode steps update the cache in place,
+        so a stash or a replay must never share storage with another cache."""
+        return {name: ({k: t.clone() for k, t in leaf.items()} if name == "layers"
+                       else leaf.clone()) for name, leaf in cache.items()}
+
+    @property
+    def stash_bytes(self) -> int:
+        """Bytes of the pre-window copy the last ``verify_step`` took."""
+        if self._stash is None:
+            return 0
+        leaves = [*self._stash["layers"].values(),
+                  *(t for name, t in self._stash.items() if name != "layers")]
+        return sum(t.numel() * t.element_size() for t in leaves)
+
+    def verify_step(self, params, tokens: np.ndarray, active: np.ndarray) -> torch.Tensor:
+        """The dense window, after stashing a device copy of the pre-window
+        cache: rollback must rebuild the state as of any window prefix, and
+        recurrent state cannot be un-written.  The copy is a ``clone`` on the
+        cache's device (a few hundred MB at most, against a host round trip
+        a round)."""
+        self._stash = self._clone(self.cache)
+        self._stash_tokens = np.asarray(tokens)
+        self._stash_params = params
+        self._replay_memo = {}
+        return super().verify_step(params, tokens, active)
+
+    def rollback(self, slot: int, n: int) -> None:
+        """Rebuild the lane's state as of window position W - n: replay the
+        kept prefix over the FULL multi-lane batch from a copy of the stash
+        (one lane alone would change the step's shapes, and with them the
+        rounding), memoised per kept length, then paste that one lane into
+        the live cache.  A replay of ``keep`` steps is bitwise the first
+        ``keep`` steps of the window: the same calls on the same state."""
+        if n <= 0:
+            return
+        if self._stash is None:
+            raise RuntimeError("rollback without a preceding verify_step")
+        keep = self._stash_tokens.shape[1] - n
+        if keep not in self._replay_memo:
+            if keep <= 0:
+                self._replay_memo[keep] = self._stash
+            else:
+                x = torch.as_tensor(self._stash_tokens[:, :keep],
+                                    dtype=torch.int64).to(self.model.device)
+                _, replayed = self.model.decode_state.window_step(
+                    self._stash_params, self._clone(self._stash), x)
+                self._replay_memo[keep] = replayed
+                self.replay_steps += keep
+        src = lane_leaves(self._replay_memo[keep], slot)
+        for path, dst in lane_leaves(self.cache, slot).items():
+            dst.copy_(src[path])
+
+    def reset_lane(self, slot: int) -> None:
+        for t in lane_leaves(self.cache, slot).values():
+            t.zero_()
 
     def snapshot(self, slot: int) -> Dict[Tuple[str, ...], torch.Tensor]:
         """A host copy of the lane's every leaf.  The copies are synchronous:
@@ -456,6 +569,57 @@ class PagedBackend(CacheBackend):
                                                                self._tables_dev)
         self._lane_pos[active] += 1
         return logits
+
+    # -- speculative verify plumbing -----------------------------------
+    def append_tokens(self, slot: int, toks: Sequence[int]) -> bool:
+        """Reserve write capacity for ``len(toks)`` consecutive positions:
+        ``prepare_lane`` (grow / COW-split / uncache) once per position,
+        crossing block boundaries as needed.  All or nothing: on exhaustion
+        the position is restored and the engine preempts a victim and
+        retries (blocks grown before the failure stay with the lane, which
+        the window will reach anyway)."""
+        pos0 = int(self._lane_pos[slot])
+        for i in range(len(toks)):
+            self._lane_pos[slot] = pos0 + i
+            if not self.prepare_lane(slot):
+                self._lane_pos[slot] = pos0
+                return False
+        self._lane_pos[slot] = pos0
+        return True
+
+    def verify_step(self, params, tokens: np.ndarray, active: np.ndarray) -> torch.Tensor:
+        """W sequential pooled decode steps over one upload of the block
+        tables (``append_tokens`` reserved every position, so the tables
+        hold still for the window); the logits after each (B, W, Vp)."""
+        self._tables_dev.copy_(torch.from_numpy(self.block_tables))
+        toks = torch.as_tensor(tokens, dtype=torch.int64).to(self.model.device)
+        logits, self.cache = self.model.decode_state.pool_window_step(params, self.cache, toks,
+                                                                      self._tables_dev)
+        self._lane_pos[active] += toks.shape[1]
+        return logits
+
+    def rollback(self, slot: int, n: int) -> None:
+        """Truncate the lane's last ``n`` writes and free the trailing blocks
+        it no longer covers.  A round commits at least one token, so the new
+        position lies past the pre-round content: every freed block is one
+        this round grew or COW-privatised, never a shared or cached one."""
+        if n <= 0:
+            return
+        bm = self.blocks
+        new_pos = max(0, int(self._lane_pos[slot]) - n)
+        self._lane_pos[slot] = new_pos
+        self.cache["pos"][slot] = new_pos
+        blocks = self._lane_blocks[slot]
+        keep = bm.blocks_needed(new_pos)
+        if len(blocks) > keep:
+            tail = blocks[keep:]
+            del blocks[keep:]
+            bm.release(tail)
+            self.block_tables[slot, keep:] = 0
+
+    def reset_lane(self, slot: int) -> None:
+        self.release(slot)
+        self.cache["pos"][slot] = 0
 
     def release(self, slot: int, tokens: Optional[Sequence[int]] = None) -> None:
         blocks = self._lane_blocks[slot]

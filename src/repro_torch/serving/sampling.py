@@ -26,7 +26,7 @@ reference's threefry bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,8 +121,10 @@ def _gumbel(seed: int, counter: int, v: int, device: torch.device) -> torch.Tens
 
 
 class Sampler:
-    """Owns the per-lane filter + key state (``.lanes``) and samples rows of
-    logits, advancing the keys of the lanes that drew."""
+    """Owns the per-lane filter + key state (``.lanes``) and both sampling
+    entry points: the plain engine's one-token :meth:`sample` and the
+    speculative engine's window :meth:`accept` share this object, so the
+    speculative path keeps the plain engine's discipline."""
 
     def __init__(self, n_lanes: int):
         self.n_lanes = n_lanes
@@ -134,15 +136,27 @@ class Sampler:
     def clear_lane(self, lane: int) -> None:
         self.lanes.clear_lane(lane)
 
-    def sample(self, logits: torch.Tensor,
-               lanes: Optional[Sequence[int]] = None) -> np.ndarray:
+    def copy_state_from(self, other: "Sampler") -> None:
+        """Adopt ``other``'s full lane state (filters + keys): the draft
+        sampler mirrors the target's at the start of every speculative
+        round, so a perfectly aligned draft proposes exactly what the
+        target will sample."""
+        np.copyto(self.lanes.temperature, other.lanes.temperature)
+        np.copyto(self.lanes.top_k, other.lanes.top_k)
+        np.copyto(self.lanes.top_p, other.lanes.top_p)
+        np.copyto(self.lanes.key, other.lanes.key)
+
+    def sample(self, logits: torch.Tensor, lanes: Optional[Sequence[int]] = None,
+               mask: Optional[np.ndarray] = None) -> np.ndarray:
         """One token per row of ``logits`` (R, V); ``lanes`` maps rows to
-        lane indices (default: row i is lane i).  One host transfer."""
+        lane indices (default: row i is lane i).  ``mask`` (R,) freezes the
+        keys of masked-out rows, whose tokens are garbage.  One host
+        transfer."""
         ls = self.lanes
         idx = np.arange(logits.shape[0]) if lanes is None else np.asarray(lanes)
         toks = torch.argmax(logits, dim=-1)
         for row, lane in enumerate(idx.tolist()):
-            if ls.temperature[lane] <= 0.0:
+            if ls.temperature[lane] <= 0.0 or (mask is not None and not mask[row]):
                 continue
             seed, counter = (int(x) for x in ls.key[lane])
             filt = _filter_one(logits[row], ls.temperature[lane], int(ls.top_k[lane]),
@@ -151,3 +165,51 @@ class Sampler:
             toks[row] = torch.argmax(filt + noise)
             ls.key[lane, 1] = counter + 1
         return toks.to(torch.int32).cpu().numpy()
+
+    def accept(self, window_logits: torch.Tensor, drafted: np.ndarray, active: np.ndarray,
+               limit: Sequence[int], eos_id: Optional[int] = None
+               ) -> Tuple[List[List[int]], np.ndarray, np.ndarray]:
+        """Coupled acceptance over one verify window.
+
+        ``window_logits`` (B, W, V) are the target's logits after each of the
+        W = k + 1 window tokens, on the device they were computed on (a
+        stochastic draw there uses that device's generator, as
+        :meth:`sample` does in the plain engine); ``drafted`` (B, k) the
+        draft's proposals; ``active`` (B,) the lanes that ran the round;
+        ``limit`` (B,) the tokens each lane may still emit; ``eos_id`` ends a
+        lane.
+
+        Position j's logits are sampled through the lane's own stream --
+        exactly the token the plain engine would emit next -- and the lane
+        continues past j iff that token equals ``drafted[:, j]``.  The draft
+        decides only how far a round reaches, never what is emitted, and a
+        lane takes one draw per emitted token (masked sampling), so the
+        stream equals the plain engine's for greedy and stochastic lanes.
+
+        Returns (per-lane emitted tokens, n_emitted (B,), n_accepted (B,)
+        drafted tokens matched)."""
+        b, w = window_logits.shape[:2]
+        k = w - 1
+        alive = np.asarray(active, bool).copy()
+        emitted: List[List[int]] = [[] for _ in range(b)]
+        n_acc = np.zeros(b, np.int64)
+        limit = np.asarray(limit)
+        for j in range(w):
+            if not alive.any():
+                break
+            toks = self.sample(window_logits[:, j], mask=alive)
+            for i in range(b):
+                if not alive[i]:
+                    continue
+                t = int(toks[i])
+                emitted[i].append(t)
+                done = len(emitted[i]) >= limit[i] or (eos_id is not None and t == eos_id)
+                # a drafted token the target also sampled is accepted even
+                # when the lane ends here (limit or eos): done controls
+                # continuation, not the proposal's correctness
+                if j < k and t == int(drafted[i, j]):
+                    n_acc[i] += 1
+                if j == k or done or t != int(drafted[i, j]):
+                    alive[i] = False
+        n_emitted = np.array([len(e) for e in emitted], np.int64)
+        return emitted, n_emitted, n_acc

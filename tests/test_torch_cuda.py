@@ -725,3 +725,110 @@ def test_pipeline_engine_on_the_card_matches_the_cpu(cuda_device):
         runs.append((done, moved, eng.prefill_frame_bytes_total, eng.decode_frame_bytes_total))
     assert runs[0] == runs[1]
     assert len(runs[0][0]) == len(prompts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["granite-8b", "rwkv6-1.6b", "paged"])
+def test_verify_window_is_bitwise_w_single_steps_on_the_card(cuda_device, dtype, family):
+    """The speculative verify window (a loop of the single-step call) gives
+    logits and a cache bitwise equal to W separate decode steps on the
+    card, through the decode kernels, for dense lanes, the block pool and
+    rwkv6's recurrent state."""
+    import dataclasses
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.models.api import build_model
+
+    arch = "granite-8b" if family == "paged" else family
+    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config(arch)), n_layers=4)
+    rcfg = tconfigs.RunConfig(param_dtype=dtype, compute_dtype=dtype, remat=False)
+    model = build_model(cfg, rcfg, device=cuda_device)
+    params = model.init(0)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (3, 21), generator=gen).to(cuda_device)
+    nxt = torch.randint(0, cfg.vocab_size, (3, 4), generator=gen).to(cuda_device)
+    ds = model.decode_state
+
+    def fresh():
+        if family != "paged":
+            return model.prefill(params, {"tokens": toks}, 64)[1]
+        cache = ds.pool_init(3, 16, 8)
+        for name in ("k", "v"):
+            cache["layers"][name].copy_(_rand(torch.Generator(device=cuda_device)
+                                              .manual_seed(5), cache["layers"][name].dtype,
+                                              *cache["layers"][name].shape))
+        cache["pos"].copy_(torch.tensor([5, 0, 17], dtype=torch.int32))
+        return cache
+    tables = torch.arange(1, 13, dtype=torch.int32, device=cuda_device).reshape(3, 4)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        if family == "paged":
+            wl, wc = ds.pool_window_step(params, fresh(), nxt, tables)
+        else:
+            wl, wc = ds.window_step(params, fresh(), nxt)
+        window_counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        c, steps = fresh(), []
+        for j in range(nxt.shape[1]):
+            if family == "paged":
+                lg, c = ds.pool_step(params, c, nxt[:, j:j + 1], tables)
+            else:
+                lg, c = model.decode_step(params, c, nxt[:, j:j + 1])
+            steps.append(lg)
+        step_counts = ops.launch_counts()
+    assert window_counts == step_counts
+    assert sum(step_counts.values()) > 0
+    assert torch.equal(wl, torch.stack(steps, 1))
+    for name in wc["layers"]:
+        assert torch.equal(wc["layers"][name], c["layers"][name]), name
+    assert torch.equal(wc["pos"], c["pos"])
+
+
+@pytest.mark.cuda
+def test_accept_samples_on_the_logits_device(cuda_device):
+    """Coupled acceptance draws a stochastic lane's tokens on the card, as
+    ``Sampler.sample`` does in the plain engine: window position by position
+    it equals ``sample`` on the card's logits (the CPU generator draws other
+    bits), and a SpecEngine whose draft is the target itself is accepted
+    wholesale and serves the card's plain ServeEngine tokens (both engines
+    prefill each request alone at its exact length)."""
+    import numpy as np
+
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.sampling import Sampler, SamplingParams
+    from repro_torch.serving.speculative import SpecEngine
+
+    def lanes():
+        s = Sampler(4)
+        for lane in (1, 3):
+            s.set_lane(lane, SamplingParams(temperature=1.5, top_k=20, seed=lane))
+        return s
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    logits = _rand(gen, torch.float32, 4, 3, 97)
+    drafted = np.zeros((4, 2), np.int32)
+    emitted, n_emitted, _ = lanes().accept(logits, drafted, np.ones(4, bool), [3] * 4)
+    ref = lanes()
+    for i in range(4):
+        for j in range(int(n_emitted[i])):
+            mask = np.arange(4) == i
+            want = int(ref.sample(logits[:, j], mask=mask)[i])
+            assert emitted[i][j] == want, (i, j)
+
+    model = _reduced_granite("float32", cuda_device)
+    params = model.init(0)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, model.cfg.vocab_size, size=n) for n in (5, 17, 33, 9)]
+    samp = [None, SamplingParams(temperature=2.0, top_k=40, seed=7), None,
+            SamplingParams(temperature=2.0, seed=8)]
+    # every prefill alone at its exact length, as the draft side prefills:
+    # the draft's cache is then bitwise the target's
+    kw = dict(max_batch=4, max_len=128, prefill_buckets=range(1, 129), max_prefill_batch=1)
+    runs = []
+    for eng in (ServeEngine(model, params, **kw),
+                SpecEngine(model, params, model, params, spec_k=3, **kw)):
+        rids = [eng.submit(p, max_new=10, sampling=s) for p, s in zip(prompts, samp)]
+        done = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        runs.append([done[r] for r in rids])
+    assert runs[0] == runs[1]
+    assert eng.metrics_snapshot().spec_acceptance_rate == 1.0
