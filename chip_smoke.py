@@ -118,7 +118,36 @@ Phases, each of which raises on failure (the script then exits nonzero):
    both sides, a 2-layer prefix draft, 8 of phase 10's requests: the
    recurrent witness's tokens, launches with rollback's replayed steps, the
    stash's bytes and the rollbacks' ms a round.  In (a), (c) and (d) each
-   kernel of the path is held against its plain version at its shapes.
+   kernel of the path is held against its plain version at its shapes;
+17. ``serve_fleet`` (after ``serve_spec``, on phase 6's weights): the serving
+   fleet (``ServingFleet``), ticked in simulated time: (a) granite-8b at
+   full width and depth, bf16, served by a dense replica (H100 profile), a
+   paged replica with the prefix cache (iPhone 16), a stage group (H100 +
+   iPhone 11 Pro, the cut ``split_decode`` picks) and a spec pair (a
+   4-layer prefix drafting on an iPhone 16 profile, k 3), every engine
+   prefilling at exact lengths, under ServingElasticPolicy, a throttled
+   phone, a seeded crash of the dense replica and a partition that heals
+   before detection: 24 requests, half stochastic, all complete; the
+   trace's death and resurrections, migrations, no paged block left,
+   exact launches, each kernel against its plain version at the fleet's
+   shapes, a second seeded run equal, every request never migrated nor
+   resurrected bit-equal to an exact-length witness (the others' first
+   differing token and its logit margin printed); (b) the reference's fp32
+   identity claims (kill fleets over dense, paged and recurrent lanes, a
+   migration run, a stage group's rebalance) at full width cut to 4 layers,
+   the recurrent kills' launches counted and held to the plain versions;
+   (c) (a)'s fleet under wall telemetry: the readings the monitor got
+   beside the device time of the same steps, every window closing on an
+   idle stream; (d) bench_fleet.py's policies-on/off goodput A/B;
+18. ``fed``: the federated serve-while-train plane: FedRoundCoordinators
+   over three granite-8b replicas (phase 6's weights) train granite-8b's
+   full width cut to 2 layers (fp32, 0.64 B params) after an lr probe:
+   int8_ef and bf16 rounds (the wire cut, the held-out loss), bf16
+   replays bit-identical, serving tokens identical with training on and
+   off, a mid-round crash, a local step's kernels against their plain
+   versions and its device time, the frame codec's parts timed; then
+   bench_fed.py's own configuration (reduced granite, 6 rounds) from 6
+   inits: its loss claim on the mean, its int8_ef replay, its wire cut.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
@@ -135,7 +164,8 @@ and 14) and RMSNorm and no decode kernel, a pipelined training step
 exactly each layer's kernels once per forward its (stage, microbatch)
 runs (``pp_launches``) and no decode kernel, a speculative path exactly
 its prefills' and its target and draft steps' launches, rollback's
-replayed steps included.
+replayed steps included, a fleet exactly the sum over its units of their
+prefill dispatches' and steps' launches.
 
 The line before the last is a JSON object of per-kernel numbers, the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -155,6 +185,7 @@ import json
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -186,10 +217,11 @@ MODEL_TOL = 1e-4
 BF16_MODEL_TOL = 0.25
 
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
-          "serve_stages", "agent", "serve_spec", "serve_rwkv", "serve_hybrid", "train",
-          "train_hybrid", "resnet", "train_pp")
+          "serve_stages", "agent", "serve_spec", "serve_fleet", "fed", "serve_rwkv",
+          "serve_hybrid", "train", "train_hybrid", "resnet", "train_pp")
 # the phases that serve full-width granite-8b, one set of weights between them
-GRANITE_PHASES = ("serve", "serve_paged", "serve_stages", "agent", "serve_spec")
+GRANITE_PHASES = ("serve", "serve_paged", "serve_stages", "agent", "serve_spec", "serve_fleet",
+                  "fed")
 OPT_IN = ("lr_probe", "baseline")
 
 # the kernels each serving path must launch; the other decode kernel must not
@@ -2422,6 +2454,967 @@ def phase_serve_recurrent(results: dict, arch: str, path: str, n_requests: int =
     add_launches(results, counts, path)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving fleet (ServingFleet) on full-width granite-8b
+# ---------------------------------------------------------------------------
+
+FLEET_BATCH, FLEET_LEN, FLEET_BS = 4, 1024, 16
+# the phone replica's pool: every lane's whole span (4 x 1024 / 16), so it
+# never preempts and a lane it serves is decoded as the paged witness's is
+FLEET_BLOCKS = FLEET_BATCH * FLEET_LEN // FLEET_BS
+# the phone's throttle ramp in bench_fleet.py's shape (toward 6x, tau 0.15 s),
+# from 1.0 sim s in (a) (once the phone has served its first requests) and
+# from 0.5 s in (d), as the bench has it
+FLEET_RAMP = (1.0, 6.0, 0.15)
+AB_RAMP = (0.5, 6.0, 0.15)
+# (a)'s arrivals span and its seeded crash of the host's window, in sim s: the
+# host has finished requests of its own before it dies
+FLEET_SPAN = 1.0
+FLEET_CRASH = (1.2, 1.4)
+
+
+def same_tree(a, b) -> bool:
+    """Nested dicts, lists and numbers equal, NaN equal to NaN."""
+    try:
+        np.testing.assert_equal(a, b)
+    except AssertionError:
+        return False
+    return True
+
+
+def exact_lengths(eng, max_len: int) -> None:
+    """Make a fleet's ServeEngine (or SpecEngine) prefill each request alone
+    at its exact length (``exact_prefill``'s settings, applied after the
+    fleet built it: the fleet passes its ``prefill_buckets`` to replicas
+    only, and a prefill batch size to none)."""
+    eng.buckets = tuple(range(1, max_len + 1))
+    eng.max_prefill_batch = 1
+
+
+def fleet_traffic(vocab: int, n: int = 24, seed: int = 5):
+    """``n`` prompts of 16-600 tokens (seeded lengths and tokens), half
+    stochastic (``spec_samplings``), arriving evenly over ``FLEET_SPAN``
+    sim s."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(16, 601, size=n)
+    prompts = [rng.integers(0, vocab, size=int(t)) for t in lengths]
+    return prompts, spec_samplings(n), np.linspace(0.0, FLEET_SPAN, n)
+
+
+def full_fleet(model, params, draft, dparams, telemetry: str = "sim"):
+    """(a)'s fleet: replica ``host`` (H100 profile, dense lanes), replica
+    ``phone`` (iPhone 16, paged with the prefix cache), the stage group
+    ``group`` (members ``g_host`` H100 and ``g_phone`` iPhone 11 Pro, the cut
+    ``split_decode`` picks) and the spec pair ``spec`` (a 4-layer prefix
+    drafting on ``s_draft``, an iPhone 16; the target on ``s_target``, an
+    H100; k 3); ServingElasticPolicy on, the phone throttled by
+    ``FLEET_RAMP``, a seeded crash of ``host`` and a partition of
+    ``g_phone`` that heals before detection; every engine prefilling at
+    exact lengths.  Also wraps each unit's stepping verb (see
+    ``instrument_units``)."""
+    from repro_torch.hw.specs import H100, IPHONE_11_PRO, IPHONE_16
+    from repro_torch.runtime.elastic import ServingElasticPolicy
+    from repro_torch.runtime.faults import KillEvent, KillTrace, make_kill_trace
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.fleet import (ServingFleet, SpecPair, StageGroup,
+                                           ThrottleTrace, WorkerSpec)
+    paged = EngineConfig(kv_blocks=FLEET_BLOCKS, kv_block_size=FLEET_BS, prefix_cache=True)
+    workers = [WorkerSpec("host", H100, max_batch=FLEET_BATCH),
+               WorkerSpec("phone", IPHONE_16, max_batch=FLEET_BATCH, engine_config=paged)]
+    group = StageGroup("group", (WorkerSpec("g_host", H100), WorkerSpec("g_phone", IPHONE_11_PRO)),
+                       max_batch=FLEET_BATCH)
+    pair = SpecPair("spec", draft=WorkerSpec("s_draft", IPHONE_16),
+                    target=WorkerSpec("s_target", H100), draft_model=draft,
+                    draft_params=dparams, spec_k=SPEC_K, max_batch=FLEET_BATCH)
+    crash = make_kill_trace(["host"], 1, t0_s=FLEET_CRASH[0], t1_s=FLEET_CRASH[1], seed=7)
+    trace = KillTrace(events=tuple(crash) + (
+        KillEvent(t_s=0.3, worker="g_phone", kind="partition", down_s=0.3),))
+    fleet = ServingFleet(model, params, workers, groups=[group], spec_pairs=[pair],
+                         max_len=FLEET_LEN, tick_s=0.05, policy=ServingElasticPolicy(),
+                         throttle=ThrottleTrace({"phone": FLEET_RAMP}),
+                         prefill_buckets=range(1, FLEET_LEN + 1), telemetry=telemetry,
+                         kill_trace=trace)
+    for u in (*fleet.workers, *fleet.spec_pairs):
+        exact_lengths(u.engine, FLEET_LEN)
+    return fleet
+
+
+def instrument_units(fleet) -> dict:
+    """Wrap each unit's stepping verb (a replica's ``step``, a group's or a
+    spec pair's ``step_paced``) so that it runs inside a
+    ``record_function("unit:<name>")`` span and records whether the card's
+    stream was idle when it returned (a measured window that closes after a
+    host sync finds it idle); installs ``count_spec_work`` on the spec
+    engine.  Returns {"windows": {name: [idle, ...]}, "spec_work": ...}."""
+    from torch.profiler import record_function
+    rec = {"windows": {}, "spec_work": count_spec_work(fleet.spec_pairs[0].engine)}
+
+    def wrap(eng, attr, name):
+        fn = getattr(eng, attr)
+        idle = rec["windows"].setdefault(name, [])
+
+        def call(*a, **kw):
+            with record_function(f"unit:{name}"):
+                out = fn(*a, **kw)
+            idle.append(torch.cuda.current_stream().query())
+            return out
+        setattr(eng, attr, call)
+    for w in fleet.workers:
+        wrap(w.engine, "step", w.name)
+    for u in (*fleet.groups, *fleet.spec_pairs):
+        wrap(u.engine, "step_paced", u.name)
+    return rec
+
+
+def drive_fleet(fleet, prompts, samplings, arrivals, max_new: int, on_tick=None) -> dict:
+    """Submit each request when its arrival comes due on the fleet's sim
+    clock and tick until drained (``drive_sim``); ``on_tick(i)`` is called
+    before tick ``i``.  Tokens by rid, wall s (synchronised), ticks."""
+    from repro_torch.serving.fleet import drive_sim
+    tick = fleet.tick
+    n = [0]
+
+    def counted_tick():
+        if on_tick is not None:
+            on_tick(n[0])
+        n[0] += 1
+        tick()
+    fleet.tick = counted_tick
+    rids = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drive_sim(fleet, arrivals, lambda i: rids.append(
+            fleet.submit(prompts[i], max_new=max_new, sampling=samplings[i])))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fleet.tick = tick
+    if rids != list(range(len(prompts))):
+        raise AssertionError(f"fleet admissions {rids}")
+    return dict(tokens={rec.req.rid: list(rec.req.out_tokens) for rec in fleet.completed},
+                wall=wall, ticks=n[0], snap=fleet.snapshot())
+
+
+def units_want(fleets, launches: tuple) -> dict:
+    """The launches by kernel that the replica workers and stage groups of
+    ``fleets`` made: each engine's prefill dispatches and decode steps
+    (paged lanes launch the paged kernel where dense ones launch the decode
+    kernel; a stage path launches the unsplit model's); ``launches`` is the
+    model's (prefill dispatch, decode step) launches."""
+    per_prefill, per_step = launches
+    paged_step = {**per_step, "decode_attention": 0,
+                  "paged_decode_attention": per_step["decode_attention"]}
+    want = dict.fromkeys(per_prefill, 0)
+
+    def add(n_prefill, n_steps, step):
+        for k in want:
+            want[k] += per_prefill[k] * n_prefill + step[k] * n_steps
+    for fleet in fleets:
+        for w in fleet.workers:
+            paged = w.engine.backend.name == "paged"
+            add(w.engine.metrics.prefill_dispatches, w.engine.steps,
+                paged_step if paged else per_step)
+        for grp in fleet.groups:
+            g = grp.engine.metrics_snapshot()
+            add(g.prefill_dispatches, g.steps, per_step)
+    return want
+
+
+def fleet_want(fleet, rec: dict, dense: tuple, draft: tuple) -> dict:
+    """The launches by kernel a fleet's run must have made: its replicas'
+    and group's (``units_want``) and the spec pair's ``spec_want``;
+    ``dense`` and ``draft`` are the target's and the draft's (prefill,
+    decode step) launches."""
+    want = units_want([fleet], dense)
+    s = fleet.spec_pairs[0].engine
+    for k, n in spec_want(s, rec["spec_work"], dense, draft).items():
+        want[k] += n
+    return want
+
+
+def first_diff_margin(model, params, prompt, got: list, want: list,
+                      max_len: int = FLEET_LEN) -> tuple:
+    """(position, the witness's token, the fleet's, their logit margin): the
+    first token where ``got`` leaves ``want``, and the witness's logit of
+    its token less its logit of the fleet's token, from an exact-length
+    prefill of the prompt and the witness's tokens before it."""
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    ctx = np.concatenate([np.asarray(prompt), np.asarray(want[:j], np.int64)])
+    with torch.no_grad():
+        logits, _ = model.prefill(params, {"tokens": torch.as_tensor(ctx[None],
+                                                                       device=model.device)},
+                                  max_len)
+    row = logits[0].float()
+    return j, want[j], got[j], float(row[want[j]] - row[got[j]])
+
+
+def phase_serve_fleet(results: dict, model, params, n_requests: int = 24,
+                      max_new: int = 32) -> None:
+    """The serving fleet on one card, in four parts.  (a) granite-8b at full
+    width and depth, bf16, one set of weights for every unit
+    (``full_fleet``): 24 requests of 16-600 prompt tokens, half stochastic;
+    every request completes, the trace's one death and its resurrections,
+    a migration, no paged block left after the drain, exact launches, each
+    kernel against its plain version at the fleet's shapes, a second run
+    equal snapshot for snapshot and token for token, and every request
+    never migrated nor resurrected bit-equal to an exact-length witness
+    engine of its unit's kind (dense, or paged like the phone).  (b)
+    ``fleet_fp32``: the reference's fp32 identity claims.  (c) (a)'s fleet
+    under ``telemetry="wall"``: the readings the monitor got beside the
+    device time of the same steps, and every measured window closing on an
+    idle stream.  (d) bench_fleet.py's A/B, policies on against off."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from torch.profiler import ProfilerActivity, profile
+    tag = "[serve-fleet]"
+    cfg = model.cfg
+    draft, dparams = prefix_draft(model, params, 4)
+    prompts, samp, arrivals = fleet_traffic(cfg.vocab_size, n_requests)
+    lengths = [len(p) for p in prompts]
+
+    # (a) the fleet, launches zeroed just before and read just after
+    fleet = full_fleet(model, params, draft, dparams)
+    g = fleet.groups[0]
+    log(f"{tag} (a) split_decode's cut for [H100, iPhone 11 Pro]: {g.engine.cuts} (stage param "
+        f"bytes {list(g.engine.stage_param_bytes)}); units host, phone, group, spec")
+    rec = instrument_units(fleet)
+    # ticks ``window`` are timed here (a synchronize at each end) and traced
+    # in the second run below: the device time the trace reads over the
+    # host wall of the same ticks untraced is the busy share (the profiler
+    # slows the host several times over, so its own wall would understate it)
+    window, stamps = (10, 20), {}
+
+    def stamp(i):
+        if i in window:
+            torch.cuda.synchronize()
+            stamps[i] = time.perf_counter()
+    ops.reset_launch_counts()
+    run = drive_fleet(fleet, prompts, samp, arrivals, max_new, on_tick=stamp)
+    counts = ops.launch_counts()
+    snap = run["snap"]
+    dense = unsplit_launches(model, params, prompts[0], FLEET_BATCH, FLEET_LEN)
+    drf = unsplit_launches(draft, dparams, prompts[0], FLEET_BATCH, FLEET_LEN)
+    kinds = [k for _, k, _ in fleet.failure_log]
+    if (snap.completed != n_requests or snap.orphaned or snap.deaths != 1
+            or snap.dead_units != ("host",) or snap.resurrections < 1
+            or snap.resurrections != kinds.count("resurrect")
+            or "return:partition" not in kinds or snap.migrations < 1
+            or any(len(t) != max_new for t in run["tokens"].values())):
+        raise AssertionError(f"{tag} (a) completed {snap.completed}/{n_requests}, orphaned "
+                             f"{snap.orphaned}, deaths {snap.deaths} {snap.dead_units}, "
+                             f"resurrections {snap.resurrections}, migrations "
+                             f"{snap.migrations}, log {fleet.failure_log}")
+    leaked = {w.name: w.engine.backend.blocks_in_use for w in fleet.workers
+              if w.engine.backend.name == "paged" and w.engine.backend.blocks_in_use}
+    if leaked:
+        raise AssertionError(f"{tag} (a) paged blocks in use after the drain: {leaked}")
+    check_launches(counts, fleet_want(fleet, rec, dense, drf), f"{tag} (a) fleet run")
+    not_idle = {n: w.count(False) for n, w in rec["windows"].items() if not all(w)}
+    moved = {r.req.rid for r in fleet.completed if r.migrated}
+    where = {r.req.rid: r.worker for r in fleet.completed}
+    per_unit = {u: sum(1 for r in fleet.completed if r.worker == u)
+                for u in ("host", "phone", "group", "spec")}
+    log(f"{tag} (a) granite-8b {cfg.n_layers} layers bf16, {n_requests} requests "
+        f"({min(lengths)}-{max(lengths)} prompt tokens, max_new {max_new}, 12 greedy, 12 "
+        f"stochastic) over {arrivals[-1]:.1f} sim s: completed {snap.completed}, finished by "
+        f"unit {per_unit}; sim {snap.sim_t:.2f} s in {run['ticks']} ticks, goodput "
+        f"{snap.goodput_tokens_per_s:.1f} tok per sim s; migrations {snap.migrations} "
+        f"({snap.migrated_requests} requests moved, {snap.queue_moves} queue moves), drains "
+        f"{snap.drains}, deaths {snap.deaths} {snap.dead_units}, resurrections "
+        f"{snap.resurrections} (recompute {snap.recompute_tokens} tokens), checkpoints "
+        f"{snap.checkpoints}, orphaned {snap.orphaned}; failure log {fleet.failure_log}")
+    log(f"{tag} (a) host wall {run['wall']:.3f} s = {run['wall'] / run['ticks'] * 1e3:.2f} ms a "
+        f"tick; launches {nonzero(counts)} = {sum(counts.values()) / run['ticks']:.1f} a tick, "
+        f"exactly each unit's prefill dispatches and steps; windows closing on a busy stream "
+        f"{not_idle or 'none'}")
+    log(f"{tag} (a) wire: group frames {snap.per_group['group'].frames_sent}, "
+        f"{snap.per_group['group'].frame_bytes} B ({snap.per_group['group'].transfer_s:.4f} sim "
+        f"s on the link, {snap.per_group['group'].link_stall_ticks} ticks in flight); spec pair "
+        f"{snap.per_spec['spec'].frame_bytes} B ({snap.per_spec['spec'].rounds_run} rounds, "
+        f"acceptance {snap.per_spec['spec'].engine.spec_acceptance_rate:.4f}, colocations "
+        f"{snap.per_spec['spec'].colocations}); phone: "
+        f"{snap.per_worker['phone'].engine.kv_blocks_peak} "
+        f"blocks peak, {snap.per_worker['phone'].engine.prefill_skipped} full hits, state "
+        f"occupancy {snap.per_worker['phone'].state_occupancy}")
+    add_launches(results, counts, "fleet")
+
+    # the witnesses: every request alone at its exact length, max_batch 4,
+    # over dense lanes and over the phone's paged pool
+    witness = {}
+    for kind, config in (("dense", None),
+                         ("paged", EngineConfig(kv_blocks=FLEET_BLOCKS, kv_block_size=FLEET_BS,
+                                                prefix_cache=True))):
+        eng = ServeEngine(model, params, FLEET_BATCH, FLEET_LEN, config=config,
+                          **exact_prefill(FLEET_LEN))
+        with torch.no_grad():
+            rids = [eng.submit(p, max_new=max_new, sampling=s) for p, s in zip(prompts, samp)]
+            done = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        witness[kind] = [done[r] for r in rids]
+        del eng
+    stayed = [i for i in range(n_requests) if i not in moved]
+    bad = [i for i in stayed
+           if run["tokens"][i] != witness["paged" if where[i] == "phone" else "dense"][i]]
+    if bad:
+        raise AssertionError(f"{tag} (a) requests {bad} (never migrated nor resurrected, served "
+                             f"by {[where[i] for i in bad]}) differ from the witness")
+    same_moved, margins = 0, []
+    for i in sorted(moved):
+        want = witness["paged" if where[i] == "phone" else "dense"][i]
+        if run["tokens"][i] == want:
+            same_moved += 1
+        else:
+            margins.append((i, where[i], "greedy" if samp[i] is None else "stochastic",
+                            *first_diff_margin(model, params, prompts[i], run["tokens"][i],
+                                               want)))
+    log(f"{tag} (a) {len(stayed)} requests never migrated nor resurrected: bit-equal to the "
+        f"exact-length witness of their unit's kind; of the {len(moved)} migrated or "
+        f"resurrected (re-prefilled over prompt and generated tokens, in bf16 another "
+        f"computation than the decode steps that made them), {same_moved} equal the witness; "
+        f"the others' first differing token (rid, unit, lane, position, witness token, fleet "
+        f"token, the witness's logit margin between them): {margins}")
+
+    # the same seeded fleet again: equal snapshot and tokens; its ticks
+    # ``window`` traced (kernels only) for the device's busy share
+    fleet2 = full_fleet(model, params, draft, dparams)
+    state = {}
+
+    def on_tick(i):
+        if i in window:
+            torch.cuda.synchronize()
+            state[i] = time.perf_counter()
+            if i == window[0]:
+                state["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                state["prof"].__enter__()
+            else:
+                state["prof"].__exit__(None, None, None)
+    run2 = drive_fleet(fleet2, prompts, samp, arrivals, max_new, on_tick=on_tick)
+    busy_us = sum(e.self_device_time_total for e in state["prof"].key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    win_s = stamps[window[1]] - stamps[window[0]]
+    traced_s = state[window[1]] - state[window[0]]
+    if not same_tree(run2["snap"].as_dict(), snap.as_dict()) or run2["tokens"] != run["tokens"]:
+        raise AssertionError(f"{tag} (a) a second run of the seeded fleet differs: snapshots "
+                             f"equal {same_tree(run2['snap'].as_dict(), snap.as_dict())}, tokens "
+                             f"equal {run2['tokens'] == run['tokens']}")
+    log(f"{tag} (a) a second run of the same seeded fleet: FleetSnapshot.as_dict() and every "
+        f"token equal; {run2['wall']:.3f} s host wall; ticks {window[0]}-{window[1] - 1}: "
+        f"{win_s * 1e3:.1f} ms of host wall in the first run, {traced_s * 1e3:.1f} ms traced "
+        f"(kernels) in this one, device busy {busy_us / 1e3:.1f} ms = "
+        f"{100 * busy_us / 1e6 / win_s:.1f}% of the untraced wall")
+    del fleet2
+
+    # each kernel of the path against its plain version at the fleet's
+    # shapes: a fresh fleet serving the two longest and two shortest requests
+    order = np.argsort(lengths)
+    pick = [int(i) for i in (*order[:2], *order[-2:])]
+    made = []
+
+    def drive():
+        f = full_fleet(model, params, draft, dparams)
+        made.append((f, instrument_units(f)))
+        drive_fleet(f, [prompts[i] for i in pick], [samp[i] for i in pick],
+                    np.zeros(len(pick)), 8)
+    with torch.no_grad():
+        served = check_served_kernels(f"{tag} (a)", drive,
+                                      lambda: fleet_want(*made[0], dense, drf))
+    log(f"{tag} (a) kernels at the fleet's shapes (requests of {[lengths[i] for i in pick]} "
+        f"prompt tokens over every unit) against their plain versions, worst margin (error / "
+        f"limit): " + "; ".join(f"{k} {v['calls']} calls, {v['margin']:.3f}"
+                                for k, v in served.items()))
+    for name, r in served.items():
+        entry = results.setdefault(name, {"name": name})
+        entry.setdefault("served_shapes", {})["fleet"] = dict(
+            r, shapes=[[list(d) for d in s] for s in r["shapes"]])
+    del made
+    torch.cuda.empty_cache()
+
+    fleet_wall(model, params, draft, dparams, prompts, samp, arrivals, max_new)
+    fleet_ab(model, params)
+    fleet_fp32(results)
+
+
+def fleet_wall(model, params, draft, dparams, prompts, samp, arrivals, max_new: int,
+               profiled: tuple = (4, 9)) -> None:
+    """(c): (a)'s fleet under ``telemetry="wall"``.  The readings each unit
+    fed the monitor (host clock, over the unprofiled ticks) beside the
+    device time of the same units' steps (torch.profiler over ticks
+    ``profiled``, the kernels launched inside each unit's span); gate:
+    every request completes, and every measured window closed on an idle
+    stream (after the host sync that brings the sampled tokens back, or a
+    stage's synchronise), so the monitor read the card's work."""
+    from repro_torch.serving.fleet import _Worker
+    from torch.profiler import ProfilerActivity, profile
+    tag = "[serve-fleet] (c)"
+    fleet = full_fleet(model, params, draft, dparams, telemetry="wall")
+    rec = instrument_units(fleet)
+    paced = {p.name: p for p in fleet._all_paced()}
+    readings = {name: [] for name in paced}
+    last = {name: p.steps_run for name, p in paced.items()}
+    state = {}
+
+    def on_tick(i):
+        if i == profiled[0]:
+            state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            state["prof"].__enter__()
+        if i == profiled[1]:
+            torch.cuda.synchronize()
+            state["prof"].__exit__(None, None, None)
+        # the readings of the tick before this one (ticks outside the
+        # profiled window only)
+        if i and not profiled[0] < i <= profiled[1]:
+            for name, p in paced.items():
+                if p.steps_run != last[name] and p.last_wall_step_s is not None:
+                    readings[name].append(p.last_wall_step_s)
+        for name, p in paced.items():
+            last[name] = p.steps_run
+    run = drive_fleet(fleet, prompts, samp, arrivals, max_new, on_tick=on_tick)
+    if "prof" not in state or run["snap"].completed != len(prompts):
+        raise AssertionError(f"{tag} completed {run['snap'].completed}/{len(prompts)} in "
+                             f"{run['ticks']} ticks")
+    spans = {e.key: (e.device_time_total, e.count) for e in state["prof"].key_averages()
+             if e.key.startswith("unit:") and e.device_type == torch.autograd.DeviceType.CPU}
+    not_idle = {n: w.count(False) for n, w in rec["windows"].items() if not all(w)}
+    if not_idle:
+        raise AssertionError(f"{tag} measured windows closed on a busy stream: {not_idle} (of "
+                             f"{ {n: len(w) for n, w in rec['windows'].items()} })")
+    parts = []
+    for unit in ("host", "phone", "group", "spec"):
+        dev_us, n = spans.get(f"unit:{unit}", (0.0, 0))
+        members = ([unit] if isinstance(fleet.worker(unit), _Worker)
+                   else [m.name for m in fleet.worker(unit).members])
+        got = {m: (f"{np.mean(readings[m]) * 1e3:.2f} ms over {len(readings[m])} ticks"
+                   if readings[m] else "none") for m in members}
+        parts.append(f"{unit}: monitor readings {got}; device time "
+                     f"{dev_us / max(n, 1) / 1e3:.2f} ms a step over {n} profiled steps")
+    log(f"{tag} telemetry='wall': completed {run['snap'].completed} in {run['ticks']} ticks, "
+        f"{run['wall']:.3f} s host wall; every one of "
+        f"{sum(len(w) for w in rec['windows'].values())} measured windows closed on an idle "
+        f"stream; " + "; ".join(parts) + f"; thermal states "
+        f"{ {n: s.thermal_state for n, s in run['snap'].per_worker.items()} }, drains "
+        f"{run['snap'].drains}, migrations {run['snap'].migrations}")
+
+
+def fleet_ab(model, params, n: int = 12, max_new: int = 16, span: float = 1.4) -> None:
+    """(d): bench_fleet.py's A/B on the full-width model: its two workers
+    (host m2-max-cpu, phone iphone-11-pro, max_batch 3, max_len 96), its
+    smoke traffic (12 prompts of 6-15 tokens, every third stochastic,
+    arrivals over 1.4 sim s, max_new 16) and its phone throttle, once with
+    thermal routing and ServingElasticPolicy and once without; gate: the
+    policies recover >= 1.3x goodput (completed tokens per sim s) and
+    migrate at least one request."""
+    from repro_torch.hw.specs import get_profile
+    from repro_torch.runtime.elastic import ServingElasticPolicy
+    from repro_torch.serving.fleet import ServingFleet, ThrottleTrace, WorkerSpec, drive_sim
+    from repro_torch.serving.sampling import SamplingParams
+    tag = "[serve-fleet] (d)"
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.cfg.vocab_size, size=int(rng.integers(6, 16)))
+               for _ in range(n)]
+    samp = [SamplingParams(temperature=2.0, top_k=32, seed=1000 + i) if i % 3 == 0 else None
+            for i in range(n)]
+    out = {}
+    for on in (True, False):
+        workers = [WorkerSpec("host", get_profile("m2-max-cpu"), max_batch=3),
+                   WorkerSpec("phone", get_profile("iphone-11-pro"), max_batch=3)]
+        fleet = ServingFleet(model, params, workers, max_len=96, tick_s=0.05,
+                             policy=ServingElasticPolicy() if on else None,
+                             throttle=ThrottleTrace({"phone": AB_RAMP}), thermal_routing=on)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            drive_sim(fleet, np.linspace(0.0, span, n),
+                      lambda i: fleet.submit(prompts[i], max_new=max_new, sampling=samp[i]))
+        out[on] = (fleet.snapshot(), time.perf_counter() - t0)
+    (on, wall_on), (off, wall_off) = out[True], out[False]
+    ratio = on.goodput_tokens_per_s / off.goodput_tokens_per_s
+    if on.completed != n or off.completed != n or on.migrated_requests < 1 or ratio < 1.3:
+        raise AssertionError(f"{tag} completed {on.completed}/{off.completed} of {n}, migrated "
+                             f"{on.migrated_requests}, goodput ratio {ratio:.3f}")
+    log(f"{tag} bench_fleet's A/B at full width: policies on {on.goodput_tokens_per_s:.3f} "
+        f"tokens per sim s ({on.sim_t:.2f} sim s, {on.migrations} migrations, "
+        f"{on.migrated_requests} requests moved, {on.drains} drains; phone "
+        f"{on.per_worker['phone'].goodput_tokens_per_s:.3f}), off "
+        f"{off.goodput_tokens_per_s:.3f} ({off.sim_t:.2f} sim s; phone "
+        f"{off.per_worker['phone'].goodput_tokens_per_s:.3f}): {ratio:.3f}x (gate >= 1.3); host "
+        f"wall {wall_on:.2f} and {wall_off:.2f} s")
+
+
+def fleet_fp32(results: dict) -> None:
+    """(b): the reference's fp32 identity claims on the card.  granite-8b's
+    full width cut to 4 layers and rwkv6-1.6b's cut to 4, fp32 (TF32 off):
+    test_failover.py's kill fleets (two workers, rate 20, max_batch 4,
+    max_len 48, 6 requests half stochastic, max_new 8, a seeded crash of
+    ``b``) over dense, paged (48 blocks of 4) and recurrent lanes at seeds
+    3 and 4, test_fleet.py's migration run, and test_pipeline_decode.py's
+    rebalance of a 2-member StageGroup; every token equal to an unmigrated
+    single engine's on the card, no block left in use.  Each model's fleet
+    runs are counted as one: their launches equal the units' prefill
+    dispatches and decode steps (``units_want``), and each kernel call is
+    held against its plain version.  The witnesses run after the count."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.hw.specs import DeviceProfile
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.elastic import ServingElasticPolicy
+    from repro_torch.runtime.faults import make_kill_trace
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.fleet import (ServingFleet, StageGroup, ThrottleTrace,
+                                           WorkerSpec, drive_sim)
+    from repro_torch.serving.sampling import SamplingParams
+    tag = "[serve-fleet] (b)"
+    rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
+
+    def prof(name, rate=20.0, link=1e9, prefill=1e9):
+        return DeviceProfile(name=name, year=2024, flops=1e12, mem_bytes=1e12, mem_bw=60e9,
+                             link_bw=link, decode_steps_per_s=rate,
+                             prefill_tokens_per_s=prefill)
+
+    def traffic(vocab, n, seed, temp, top_k, seed0, size0=6):
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, vocab, size=size0 + i) for i in range(n)]
+        samp = [SamplingParams(temperature=temp, top_k=top_k, seed=seed0 + i) if i % 2 else None
+                for i in range(n)]
+        return prompts, samp
+
+    def unmigrated(model, params, prompts, samp, max_new, config=None):
+        ref = ServeEngine(model, params, max_batch=len(prompts), max_len=48, config=config)
+        for p, s in zip(prompts, samp):
+            ref.submit(p, max_new=max_new, sampling=s)
+        return {r.rid: r.out_tokens for r in ref.run_until_drained()}
+
+    def check(what, fleet, want, model, params, prompts):
+        got = {r.req.rid: r.req.out_tokens for r in fleet.completed}
+        if got != want:
+            diffs = [(rid, *first_diff_margin(model, params, prompts[rid], got[rid], want[rid],
+                                              48))
+                     for rid in want if got.get(rid) != want[rid]]
+            raise AssertionError(f"{tag} {what}: tokens differ from the unmigrated engine's "
+                                 f"(rid, position, want, got, margin): {diffs}")
+        leaked = {w.name: w.engine.backend.blocks_in_use for w in fleet.workers
+                  if w.engine.backend.name == "paged" and w.engine.backend.blocks_in_use}
+        if leaked:
+            raise AssertionError(f"{tag} {what}: blocks in use after the drain {leaked}")
+        return sum(len(t) for t in got.values())
+
+    def kill_run(model, params, config, seed):
+        prompts, samp = traffic(model.cfg.vocab_size, 6, seed, 2.0, 32, 300)
+        fleet = ServingFleet(
+            model, params, [WorkerSpec(nm, prof(f"dev-{nm}"), max_batch=4,
+                                       engine_config=config) for nm in "ab"],
+            max_len=48, tick_s=0.05,
+            kill_trace=make_kill_trace(["b"], 1, t0_s=0.4, t1_s=0.6, seed=seed))
+        drive_sim(fleet, np.linspace(0.0, 0.3, 6), lambda i: fleet.submit(
+            prompts[i], max_new=8, sampling=samp[i]))
+        return fleet, prompts, samp, config
+
+    def migration_run(model, params):
+        # test_fleet.py's migration run
+        prompts = [np.random.default_rng(10 + i).integers(0, model.cfg.vocab_size, size=6 + i)
+                   for i in range(6)]
+        samp = [SamplingParams(temperature=3.0, top_k=16, seed=50 + i) if i % 2 else None
+                for i in range(6)]
+        fleet = ServingFleet(model, params, [WorkerSpec(nm, prof(f"dev-{nm}"), max_batch=2)
+                                             for nm in "ab"],
+                             max_len=48, tick_s=0.05, policy=ServingElasticPolicy(),
+                             throttle=ThrottleTrace({"b": (0.2, 6.0, 0.1)}))
+        drive_sim(fleet, np.linspace(0.0, 0.5, 6), lambda i: fleet.submit(
+            prompts[i], max_new=8, sampling=samp[i]))
+        return fleet, prompts, samp, None
+
+    def rebalance_run(model, params):
+        # test_pipeline_decode.py's rebalance
+        prompts, samp = traffic(model.cfg.vocab_size, 6, 9, 2.0, 16, 700)
+        grp = StageGroup("pair", (WorkerSpec("s0", prof("d0", link=1e6, prefill=1e5)),
+                                  WorkerSpec("s1", prof("d1", link=1e6, prefill=1e5))),
+                         cuts=(2,), max_batch=3)
+        fleet = ServingFleet(model, params, groups=[grp], max_len=48, tick_s=0.05,
+                             policy=ServingElasticPolicy(),
+                             throttle=ThrottleTrace({"s1": (0.3, 6.0, 0.1)}))
+        drive_sim(fleet, np.linspace(0.0, 0.5, 6), lambda i: fleet.submit(
+            prompts[i], max_new=8, sampling=samp[i]))
+        return fleet, prompts, samp, None
+
+    lines = []
+    for arch in ("granite-8b", "rwkv6-1.6b"):
+        model = build_model(dataclasses.replace(get_config(arch), n_layers=4), rcfg,
+                            device="cuda")
+        params = model.init(0)
+        if arch == "granite-8b":
+            launches = unsplit_launches(model, params, np.arange(6), 4, 48)
+            paged = EngineConfig(kv_blocks=48, kv_block_size=4)
+            plan = [(f"dense kill seed {s}", lambda s=s: kill_run(model, params, None, s))
+                    for s in (3, 4)]
+            plan += [(f"paged kill seed {s}", lambda s=s: kill_run(model, params, paged, s))
+                     for s in (3, 4)]
+            plan += [("migration", lambda: migration_run(model, params)),
+                     ("rebalance", lambda: rebalance_run(model, params))]
+        else:
+            launches = recurrent_launches(model.cfg)
+            plan = [(f"recurrent kill seed {s}", lambda s=s: kill_run(model, params, None, s))
+                    for s in (3, 4)]
+        runs = {}
+
+        def drive():
+            for what, run in plan:
+                runs[what] = run()
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            served = check_served_kernels(
+                f"{tag} {arch}", drive,
+                lambda: units_want([f for f, _, _, _ in runs.values()], launches))
+            counts = ops.launch_counts()
+            check_launches(counts, units_want([f for f, _, _, _ in runs.values()], launches),
+                           f"{tag} {arch}")
+            add_launches(results, counts, f"fleet fp32 {arch}")
+            lines.append(f"{arch}: launches {nonzero(counts)} over {len(runs)} fleet runs, "
+                         f"held against the plain versions (worst margin " + ", ".join(
+                             f"{k} {v['margin']:.3f}" for k, v in served.items()) + ")")
+            for what, (fleet, prompts, samp, config) in runs.items():
+                snap = fleet.snapshot()
+                if "kill" in what:
+                    if (snap.completed != 6 or snap.deaths != 1 or snap.resurrections < 1
+                            or snap.orphaned):
+                        raise AssertionError(f"{tag} {arch} {what}: {snap}")
+                    note = (f"{snap.resurrections} resurrections, {snap.recompute_tokens} "
+                            f"recompute tokens")
+                elif what == "migration":
+                    if snap.completed != 6 or snap.migrated_requests < 1:
+                        raise AssertionError(f"{tag} migration run: {snap}")
+                    note = f"{snap.migrated_requests} requests moved"
+                else:
+                    gs = snap.per_group["pair"]
+                    if (snap.completed != 6 or gs.recuts < 1 or gs.cuts[0] <= 2
+                            or gs.recut_bytes <= 0):
+                        raise AssertionError(f"{tag} rebalance: {gs}")
+                    note = f"cuts (2,) -> {gs.cuts}, {gs.recut_bytes} B moved"
+                check(f"{arch} {what}", fleet, unmigrated(model, params, prompts, samp, 8,
+                                                          config), model, params, prompts)
+                lines.append(f"{arch} {what}: {note}")
+        del model, params, runs
+        torch.cuda.empty_cache()
+    log(f"{tag} fp32, 4 layers at full width: every token equal to an unmigrated single "
+        f"engine's on the card, no block in use after any drain: " + "; ".join(lines))
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the federated serve-while-train plane over a granite-8b fleet
+# ---------------------------------------------------------------------------
+
+FED_LAYERS = 2          # granite-8b's full width cut to 2 layers, fp32: ~0.64 B params
+# rounds at full width: one.  zlib level 6 (the FEDR frame's DEFLATE, fixed
+# by its format) takes ~67 s on the host for one 637 MB int8 stream, two a
+# round; two rounds of it would take the phase past four minutes
+FED_ROUNDS = 1
+# local-SGD lr: the reference's 0.3 was set for its reduced model; the probe
+# the phase prints first shows it works at full width too (PERF.md)
+FED_LR = 0.3
+FED_PROBE_LRS = (0.01, 0.03, 0.1, 0.3, 1.0)
+# bench_fed.py's own configuration, where its loss claim is made: reduced
+# granite (2 layers, fp32), 6 rounds, lr 0.3; int8_ef's held-out loss may
+# exceed bf16's by LOSS_EPS and must fall by 0.5 from the init.  The bench
+# makes the claim at one init, jax.random.key(0), which the port cannot draw;
+# at other inits it fails in both packages alike (seed 4 of the port's
+# inits: int8_ef above bf16 by 0.0107 in each, tests/test_torch_fed.py's
+# test_bench_fed_loss_gap_matches_the_reference), so the phase holds the
+# mean over BENCH_SEEDS inits, each drawn on the CPU as the test draws it,
+# and holds every seed's card run to the port's CPU run from the same init
+BENCH_ROUNDS = 6
+BENCH_SEEDS = tuple(range(6))
+FED_LOSS_EPS = 5e-3
+# held-out loss after the rounds, card vs CPU from one init, each mode and
+# the gap between them (the test's tolerance for port vs reference)
+BENCH_LOSS_TOL = 2e-4
+
+
+def fed_heldout(model, params) -> float:
+    """bench_fed.py's held-out loss: 8 sequences of 32 tokens from another
+    seed's stream (seed 7, step 999)."""
+    from repro_torch.data.synthetic import DataConfig, TokenPipeline
+    batch = TokenPipeline(DataConfig(vocab_size=model.cfg.vocab_size, seq_len=32,
+                                     global_batch=8, seed=7)).batch(999)
+    with torch.no_grad():
+        loss, _ = model.loss(params, {"tokens": torch.as_tensor(batch["tokens"],
+                                                                device=model.device)})
+    return float(loss)
+
+
+def fed_coordinator(serve_model, serve_params, model, init, mode: str, rounds: int,
+                    profile=None, max_len: int = 128, kill_trace=None):
+    """A FedRoundCoordinator over three replica workers (``profile``, by
+    default the H100's; max_batch 4) serving ``serve_model``, training
+    ``model`` from ``init``: 2 participants, 2 local steps of 4 x 32
+    tokens, lr ``FED_LR``, frames in ``mode``."""
+    from repro_torch.hw.specs import H100
+    from repro_torch.serving.failover import FailoverConfig
+    from repro_torch.serving.fleet import ServingFleet, WorkerSpec
+    from repro_torch.serving.train_plane import FedConfig, FedRoundCoordinator
+    workers = [WorkerSpec(n, profile or H100, max_batch=4) for n in ("a", "b", "c")]
+    fleet = ServingFleet(serve_model, serve_params, workers, max_len=max_len, tick_s=0.05,
+                         kill_trace=kill_trace,
+                         failover=FailoverConfig(checkpoint_every_s=0.5)
+                         if kill_trace is not None else None)
+    fc = FedConfig(rounds=rounds, local_steps=2, participants=2, batch=4, seq_len=32,
+                   lr=FED_LR, seed=0, mode=mode)
+    return FedRoundCoordinator(fleet, model, fc, params=init)
+
+
+def timed_frames(fed) -> dict:
+    """Time the frame codec's parts while the coordinator runs: swap the
+    ``fed`` module's ``compress``, ``codec`` and ``zlib`` for timed twins
+    (``compress_tree`` synchronised, so its time is the card's) and return
+    {part: [seconds, ...]}; ``restore()`` puts the modules back."""
+    from types import SimpleNamespace
+    from repro_torch.optim import compress
+    from repro_torch.wire import codec
+    seen = {"restore": (fed.compress, fed.codec, fed.zlib)}
+
+    def timed(key, fn, sync=False):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            seen.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return call
+    fed.compress = SimpleNamespace(init_error=compress.init_error,
+                                   compress_tree=timed("quantise", compress.compress_tree, True),
+                                   decompress_tree=timed("dequantise", compress.decompress_tree,
+                                                         True))
+    fed.codec = SimpleNamespace(dumps=timed("codec dumps", codec.dumps),
+                                loads=timed("codec loads", codec.loads))
+    fed.zlib = SimpleNamespace(compress=timed("zlib compress", zlib.compress),
+                               decompress=timed("zlib decompress", zlib.decompress))
+    return seen
+
+
+def untime_frames(fed, seen: dict) -> dict:
+    fed.compress, fed.codec, fed.zlib = seen.pop("restore")
+    return {k: f"{1e3 * sum(v) / len(v):.1f} ms x {len(v)}" for k, v in seen.items()}
+
+
+def phase_fed(results: dict, serve_model, serve_params) -> None:
+    """The federated plane on one card: FedRoundCoordinators over three
+    bf16 granite-8b replica workers (phase 6's weights) train granite-8b's
+    full width cut to 2 layers, fp32 (0.64 B params), 2 participants x 2
+    local steps a round, FED_ROUNDS rounds.  First an lr probe (4 local
+    steps per lr, held-out loss).  Gates, test_fed.py's and bench_fed.py's
+    claims: int8_ef frames >= 3x smaller than bf16's, and the held-out loss
+    falling in both modes; two seeded bf16 replays bit-identical; serving
+    tokens identical with training on and off; a crash mid-round losing no
+    round and excluding the dead participant; flash and RMSNorm of a local
+    step against their plain versions.  The int8_ef run times the frame
+    codec's parts.  Then bench_fed.py's own configuration (reduced granite,
+    6 rounds), where its loss claim is made, from each of BENCH_SEEDS'
+    inits, drawn on the CPU and run on the card and on the CPU: int8_ef's
+    mean held-out loss on the card equal or better than bf16's, every
+    seed's losses and gap within BENCH_LOSS_TOL of the CPU's, seed 0's
+    replay bit-identical, the wire cut at every seed."""
+    from repro_torch.configs import RunConfig, get_config, reduced_config
+    from repro_torch.convert import leaves, move_params, stack_blocks
+    from repro_torch.data.synthetic import DataConfig, TokenPipeline
+    from repro_torch.hw.specs import H100, DeviceProfile
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import fed
+    from repro_torch.runtime.faults import KillEvent, KillTrace
+    from repro_torch.serving.fleet import drive_sim
+    from repro_torch.serving.train_plane import _local_sgd_step
+    tag = "[fed]"
+    rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=FED_LAYERS)
+    model = build_model(cfg, rcfg, device="cuda")
+    init = model.init(0)
+    n_params = sum(t.numel() for t in leaves(init))
+    loss_init = fed_heldout(model, init)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=12,
+                                    seed=0), shard=0, n_shards=3)
+    probe = {}
+    for lr in FED_PROBE_LRS:
+        step, p = _local_sgd_step(model, lr), init
+        for s in range(4):
+            p, _, _ = step(p, {}, pipe.batch(s))
+        probe[lr] = fed_heldout(model, p)
+        del p
+    log(f"{tag} granite-8b full width, {FED_LAYERS} layers, fp32: {n_params} params "
+        f"({n_params * 4 / 1e9:.2f} GB); held-out loss at init {loss_init:.4f}; after 4 "
+        f"local-SGD steps of 4 x 32 tokens by lr: "
+        + ", ".join(f"{lr}: {v:.4f}" for lr, v in probe.items()) + f"; the phase runs lr {FED_LR}")
+
+    failed = []         # gates whose failure must not hide the other readings
+    runs = {}
+    for name, mode in (("int8_ef", "int8_ef"), ("bf16", "bf16"), ("bf16 replay", "bf16")):
+        coord = fed_coordinator(serve_model, serve_params, model, init, mode, FED_ROUNDS)
+        parts = timed_frames(fed) if name != "bf16 replay" else None
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            coord.run_rounds()
+            torch.cuda.synchronize()
+        finally:
+            parts = untime_frames(fed, parts) if parts is not None else {}
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if coord.rounds_done != FED_ROUNDS or coord.deliveries != 2 * FED_ROUNDS:
+            raise AssertionError(f"{tag} {name}: {coord.rounds}")
+        runs[name] = dict(params=coord.params, wire=coord.wire_bytes_total, rounds=coord.rounds,
+                          loss=fed_heldout(model, coord.params))
+        log(f"{tag} {name}: {coord.rounds_done} round(s) in {wall:.2f} s host wall, wire "
+            f"{coord.wire_bytes_total} B, train {coord.train_s_total:.4f} sim s; "
+            + "; ".join(f"round {r.round_id}: {r.delivered} loss {r.loss_first:.4f} -> "
+                        f"{r.loss_last:.4f}, {r.wire_bytes} B, t {r.t_begin:.2f}-{r.t_end:.2f}"
+                        for r in coord.rounds)
+            + f"; held-out loss {runs[name]['loss']:.4f}; launches {nonzero(counts)}"
+            + (f"; frame codec by part {parts}" if parts else ""))
+        if name == "int8_ef":
+            add_launches(results, counts, "fed")
+        del coord
+        torch.cuda.empty_cache()
+    a, bf, rep = runs["int8_ef"], runs["bf16"], runs["bf16 replay"]
+    ratio = bf["wire"] / a["wire"]
+    same = (all(torch.equal(x, y) for x, y in zip(leaves(bf["params"]), leaves(rep["params"])))
+            and bf["rounds"] == rep["rounds"])
+    if not same:
+        pairs = (leaves(bf["params"]), leaves(rep["params"]))
+        failed.append(f"two seeded bf16 replays differ in "
+                      f"{sum(int((x != y).sum()) for x, y in zip(*pairs))} "
+                      f"param entries")
+    if ratio < 3.0 or not a["loss"] < loss_init or not bf["loss"] < loss_init:
+        failed.append(f"int8_ef frames {ratio:.3f}x smaller than bf16's (gate >= 3), held-out "
+                      f"loss int8_ef {a['loss']:.4f}, bf16 {bf['loss']:.4f}, init {loss_init:.4f}")
+    log(f"{tag} two seeded bf16 replays: params bit-identical {same}; int8_ef frames "
+        f"{ratio:.3f}x smaller than bf16's (gate >= 3); held-out loss {loss_init:.4f} -> "
+        f"int8_ef {a['loss']:.4f}, bf16 {bf['loss']:.4f} after {FED_ROUNDS} round(s) (int8_ef's "
+        f"top-k leaves half the delta's mass in its error feedback for later rounds)")
+    del runs, a, bf, rep
+
+    # serving traffic with training on (bf16 frames) and off
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, serve_model.cfg.vocab_size, size=int(n))
+               for n in rng.integers(8, 64, size=6)]
+    arrivals = np.linspace(0.0, 0.4, len(prompts))
+
+    def serve(target):
+        with torch.no_grad():
+            drive_sim(target, arrivals, lambda i: target.submit(prompts[i], max_new=8))
+        return {r.req.rid: list(r.req.out_tokens) for r in target.completed}
+    on = fed_coordinator(serve_model, serve_params, model, init, "bf16", FED_ROUNDS)
+    tokens_on = serve(on)
+    on.run_rounds()
+    off = fed_coordinator(serve_model, serve_params, model, init, "bf16", FED_ROUNDS).fleet
+    if serve(off) != tokens_on or on.rounds_done != FED_ROUNDS:
+        failed.append(f"serving tokens with training on equal those with it off: "
+                      f"{serve(off) == tokens_on}; {on.rounds_done} rounds")
+    log(f"{tag} serving {len(prompts)} requests with training on (rounds "
+        + "; ".join(f"{r.round_id}: participants {r.participants}, t {r.t_begin:.2f}-"
+                    f"{r.t_end:.2f}" for r in on.rounds)
+        + f", {on.preempt_ticks} ticks preempted by serving) and off: tokens identical")
+    del on, off
+    torch.cuda.empty_cache()
+
+    # a crash of participant b halfway through its bf16 frame's flight over
+    # the H100 profile's link, in round 0
+    t_crash = 0.15 + n_params * 2 / H100.link_bw / 2
+    trace = KillTrace(events=(KillEvent(t_s=t_crash, worker="b", kind="crash",
+                                        down_s=float("inf")),))
+    coord = fed_coordinator(serve_model, serve_params, model, init, "bf16", FED_ROUNDS,
+                            kill_trace=trace)
+    coord.run_rounds()
+    hit = [r for r in coord.rounds if "b" in r.excluded]
+    if (coord.rounds_done != FED_ROUNDS or not hit or any("b" in r.delivered for r in hit)
+            or any(r.samples != len(r.delivered) * 8 for r in coord.rounds)):
+        failed.append(f"crash run: {coord.rounds}")
+    log(f"{tag} b crashes at {t_crash:.3f} sim s, mid-round: {coord.rounds_done} round(s), none "
+        f"lost; " + "; ".join(f"round {r.round_id}: delivered {r.delivered}, excluded "
+                               f"{r.excluded}, {r.samples} samples" for r in coord.rounds)
+        + f"; failure log {coord.fleet.failure_log}")
+    del coord
+    torch.cuda.empty_cache()
+
+    # flash and RMSNorm of a local step against their plain versions, the
+    # step's device time, and one delta's device-to-host copy
+    step = _local_sgd_step(model, FED_LR)
+    batch = pipe.batch(0)
+    ops.reset_launch_counts()
+    new, _, _ = step(init, {}, batch)
+    one = ops.launch_counts()
+    if not one["flash_attention"] or not one["rmsnorm"]:
+        raise AssertionError(f"{tag} a local step launched {one}")
+    served = check_served_kernels(f"{tag} local step", lambda: step(init, {}, batch), one)
+    log(f"{tag} a local step's forward kernels (B=4 T=32) against their plain versions, worst "
+        f"margin (error / limit): " + "; ".join(f"{k} {v['calls']} calls, {v['margin']:.3f}"
+                                               for k, v in served.items()))
+    profile_step(lambda: step(init, {}, batch), "local SGD step (granite-8b width, 2 layers, "
+                                               "fp32, 4 x 32 tokens)", top=6, reps=2)
+    delta = stack_blocks(fed.tree_delta(new, init))
+    del new
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [t.cpu() for t in leaves(delta)]
+    d2h = time.perf_counter() - t0
+    log(f"{tag} one delta ({n_params} fp32 entries, {sum(t.nbytes for t in host)} B): "
+        f"device-to-host copy {d2h * 1e3:.1f} ms (pageable memory)")
+    del host, delta
+    torch.cuda.empty_cache()
+
+    # bench_fed.py's configuration: its loss claim over BENCH_SEEDS inits,
+    # each run on the card and on the CPU, its replay (seed 0), its wire cut
+    bcfg = dataclasses.replace(reduced_config(get_config("granite-8b")), n_layers=2)
+    bmodels = {"card": build_model(bcfg, rcfg, device="cuda"),
+               "cpu": build_model(bcfg, rcfg, device="cpu")}
+    bprof = DeviceProfile(name="bench", year=2024, flops=1e12, mem_bytes=8e9, mem_bw=60e9,
+                          link_bw=1e9, decode_steps_per_s=20.0, prefill_tokens_per_s=2000.0)
+    bench, cpu_s = [], 0.0
+    for seed in BENCH_SEEDS:
+        cinit = bmodels["cpu"].init(seed)
+        inits = {"card": move_params(cinit, "cuda"), "cpu": cinit}
+        row = dict(seed=seed, init=fed_heldout(bmodels["card"], inits["card"]))
+        for where, bmodel in bmodels.items():
+            t0 = time.perf_counter()
+            modes = ("int8_ef", "bf16") + (("int8_ef replay",) if seed == 0 and where == "card"
+                                           else ())
+            for mode in modes:
+                c = fed_coordinator(bmodel, inits[where], bmodel, inits[where], mode.split()[0],
+                                    BENCH_ROUNDS, profile=bprof, max_len=64)
+                c.run_rounds()
+                row[where, mode] = dict(params=c.params, wire=c.wire_bytes_total,
+                                        rounds=c.rounds_done, loss=fed_heldout(bmodel, c.params))
+            row[where, "gap"] = row[where, "int8_ef"]["loss"] - row[where, "bf16"]["loss"]
+            if where == "cpu":
+                cpu_s += time.perf_counter() - t0
+        bench.append(row)
+    first = bench[0]
+    b_same = all(torch.equal(x, y) for x, y in zip(leaves(first["card", "int8_ef"]["params"]),
+                                                  leaves(first["card", "int8_ef replay"]
+                                                         ["params"])))
+    ratios = [r["card", "bf16"]["wire"] / r["card", "int8_ef"]["wire"] for r in bench]
+    mean_i8 = float(np.mean([r["card", "int8_ef"]["loss"] for r in bench]))
+    mean_bf = float(np.mean([r["card", "bf16"]["loss"] for r in bench]))
+    rounds = {r[w, m]["rounds"] for r in bench for w in bmodels for m in ("int8_ef", "bf16")}
+    witness = max(abs(r["card", k] - r["cpu", k]) if k == "gap"
+                  else abs(r["card", k]["loss"] - r["cpu", k]["loss"])
+                  for r in bench for k in ("int8_ef", "bf16", "gap"))
+    if (rounds != {BENCH_ROUNDS} or not b_same or min(ratios) < 3.0
+            or not mean_i8 <= mean_bf + FED_LOSS_EPS or not witness <= BENCH_LOSS_TOL
+            or any(not r["card", "int8_ef"]["loss"] < r["init"] - 0.5 for r in bench)):
+        failed.append(f"bench_fed's configuration: rounds {rounds}, replay identical {b_same}, "
+                      f"wire cut {min(ratios):.3f}x at least, mean held-out loss int8_ef "
+                      f"{mean_i8:.4f}, bf16 {mean_bf:.4f}, card vs CPU at most {witness:.2e} "
+                      f"apart")
+    log(f"{tag} bench_fed.py's configuration (reduced granite, 2 layers, fp32, {BENCH_ROUNDS} "
+        f"rounds, lr {FED_LR}), inits {list(BENCH_SEEDS)} drawn on the CPU: held-out loss on the "
+        f"card (init -> int8_ef, bf16; int8_ef less bf16 on the card, on the CPU) "
+        + "; ".join(f"seed {r['seed']}: {r['init']:.4f} -> {r['card', 'int8_ef']['loss']:.6f}, "
+                    f"{r['card', 'bf16']['loss']:.6f} ({r['card', 'gap']:+.6f}, "
+                    f"{r['cpu', 'gap']:+.6f})" for r in bench)
+        + f"; mean int8_ef {mean_i8:.6f} against bf16 {mean_bf:.6f} (gate: int8_ef <= bf16 + "
+        f"{FED_LOSS_EPS}, and each below its init - 0.5); card vs CPU: losses and gaps at most "
+        f"{witness:.2e} apart (gate {BENCH_LOSS_TOL}); the CPU runs took {cpu_s:.1f} s; frames "
+        f"{min(ratios):.3f}-{max(ratios):.3f}x smaller than bf16's; seed 0's int8_ef replay "
+        f"bit-identical {b_same}")
+    if failed:
+        raise AssertionError(f"{tag} " + "; ".join(failed))
+
+
 def time_sampler(logits: torch.Tensor, n_lanes: int, iters: int = 10) -> dict:
     """Host ms of one ``Sampler.sample`` over ``logits`` with every lane
     greedy, then with every lane stochastic (seeded, one seed per lane)."""
@@ -3575,6 +4568,12 @@ def main(argv=None) -> int:
     if "serve_spec" in phases:
         torch.cuda.empty_cache()
         phase_serve_spec(results, *full)
+    if "serve_fleet" in phases:
+        torch.cuda.empty_cache()
+        phase_serve_fleet(results, *full)
+    if "fed" in phases:
+        torch.cuda.empty_cache()
+        phase_fed(results, *full)
     del full
     torch.cuda.empty_cache()
     if "serve_rwkv" in phases:

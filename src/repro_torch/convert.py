@@ -89,3 +89,23 @@ def resnet_params_from_jax(blocks: List[dict], device="cuda") -> List[dict]:
     """The reference's ResNet block list with numpy leaves as the port's, on
     ``device``: the layout is the same, so each leaf crosses as it is."""
     return cache_from_jax(blocks, device)
+
+
+def stack_blocks(tree: dict) -> dict:
+    """The port's params (or a tree of their shape) in the reference's
+    layout: the per-layer block dicts stacked into ``(L, ...)`` leaves.
+    Other entries are kept as they are.  Wire frames of a model tree
+    (the fed plane's updates) are built in this layout, so a frame from
+    either package decodes in the other onto the same tree."""
+    blocks = tree["blocks"]
+    stacked = unflatten(blocks[0], [torch.stack(ls) for ls in
+                                    zip(*(list(leaves(b)) for b in blocks))])
+    return {**tree, "blocks": stacked}
+
+
+def unstack_blocks(tree: dict) -> dict:
+    """:func:`stack_blocks`' inverse: ``(L, ...)`` block leaves cut into one
+    dict per layer (views of the stacked leaves)."""
+    sub = tree["blocks"]
+    n = next(iter(leaves(sub))).shape[0]
+    return {**tree, "blocks": [tree_map(lambda a, i=i: a[i], sub) for i in range(n)]}

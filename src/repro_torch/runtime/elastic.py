@@ -19,8 +19,7 @@ Policies consume :class:`repro_torch.runtime.monitor.ThermalMonitor` summaries a
 emit Actions; the trainer / simulator executes them.
 
 The same mitigations generalise from trainer stage-swaps to **live serving
-traffic** (consumed by the fleet's ``ServingFleet``: the reference's
-``repro/serving/fleet.py``; the port's is ROADMAP item 6c):
+traffic** (consumed by :class:`repro_torch.serving.fleet.ServingFleet`):
 :class:`ServingElasticPolicy` emits ``drain`` (route new admissions away
 from a hot worker), ``migrate`` (preempt its decode lanes token-identically
 and re-admit them on a cooler worker) and ``duty_cycle`` (fewer decode

@@ -1,8 +1,7 @@
 """Scale plane: a vectorized fleet simulator for production-size benches
 (a copy of ``repro/serving/scale.py``).
 
-``ServingFleet`` (the reference's ``repro/serving/fleet.py``; the port's is
-ROADMAP item 6c) paces *real* engines in
+:class:`~repro_torch.serving.fleet.ServingFleet` paces *real* engines in
 simulated time — perfect for token-identity claims, useless at the
 ROADMAP's "heavy traffic from millions of users" scale: every tick walks
 Python loops over workers, lanes and charge queues, and every worker runs

@@ -832,3 +832,36 @@ def test_accept_samples_on_the_logits_device(cuda_device):
         runs.append([done[r] for r in rids])
     assert runs[0] == runs[1]
     assert eng.metrics_snapshot().spec_acceptance_rate == 1.0
+
+
+@pytest.mark.cuda
+def test_fleet_kill_on_the_card_matches_the_cpu(cuda_device):
+    """fp32: a two-worker ServingFleet on the card, one worker crashing
+    mid-decode (a seeded kill trace), serves the CPU fleet's greedy tokens
+    and reads the same FleetSnapshot, deaths and resurrections included."""
+    import numpy as np
+
+    from repro_torch.convert import move_params
+    from repro_torch.hw.specs import DeviceProfile
+    from repro_torch.runtime.faults import make_kill_trace
+    from repro_torch.serving.fleet import ServingFleet, WorkerSpec, drive_sim
+
+    prof = DeviceProfile(name="dev", year=2024, flops=1e12, mem_bytes=8e9, mem_bw=60e9,
+                         link_bw=1e9, decode_steps_per_s=20.0, prefill_tokens_per_s=1e9)
+    cpu, gpu = _reduced_granite("float32", "cpu"), _reduced_granite("float32", cuda_device)
+    p_cpu = cpu.init(0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cpu.cfg.vocab_size, size=6 + i) for i in range(6)]
+    runs = []
+    for model, params in ((cpu, p_cpu), (gpu, move_params(p_cpu, cuda_device))):
+        fleet = ServingFleet(model, params, [WorkerSpec(n, prof, max_batch=4) for n in "ab"],
+                             max_len=48, tick_s=0.05,
+                             kill_trace=make_kill_trace(["b"], 1, t0_s=0.4, t1_s=0.6, seed=3))
+        drive_sim(fleet, np.linspace(0.0, 0.3, len(prompts)),
+                  lambda i: fleet.submit(prompts[i], max_new=8))
+        snap = fleet.snapshot()
+        assert snap.completed == len(prompts) and snap.deaths == 1
+        assert snap.resurrections >= 1 and snap.orphaned == 0
+        runs.append(({rec.req.rid: rec.req.out_tokens for rec in fleet.completed},
+                     snap.as_dict()))
+    np.testing.assert_equal(runs[1], runs[0])        # nested, NaN equal to NaN

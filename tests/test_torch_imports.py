@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports ``jax`` or the JAX package ``repro``."""
+imports ``jax``, ``ml_dtypes`` (which ships with jax) or the JAX package
+``repro``."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 
 
 def _imported_roots(path: Path):
@@ -38,7 +39,7 @@ def test_importing_the_port_loads_no_jax():
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
