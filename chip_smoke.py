@@ -18,7 +18,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
    and time kernel, plain version and a library call (and the rwkv6 and
    SSD backwards); every kernel also by its device time alone
    (torch.profiler), beside the library call's, and SSD and WKV6 against
-   their bounds on tensor cores and as fp32 vector work;
+   their bounds on tensor cores and as fp32 vector work; then flash, both
+   decode kernels and RMSNorm at the shapes the other families give them
+   (``FAMILY_FLASH`` ... ``FAMILY_RMS``: whisper's non-causal encoder and
+   its cross-attention over 1500 frames, internvl2's D=64 at H/G 7,
+   llama4's 8192-token chunks at H/G 5, grok's H/G 6, ...), each against
+   its plain version, its bound and SDPA or ``F.rms_norm``;
 4. reduced granite in fp32 with the same weights on the card (kernels) and
    on the CPU (plain versions): logits and greedy ServeEngine tokens agree,
    over dense lanes and over the paged pool with the prefix cache (a run
@@ -26,7 +31,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
    rwkv6 and zamba2 (4 layers) over the recurrent backend: prefill logits
    and every state leaf at B=1 and exact lengths 1-100, decode logits,
    identical greedy tokens, and a run with a preempted lane resumed from
-   its snapshot (one prefill dispatch a request);
+   its snapshot (one prefill dispatch a request); then each arch this
+   slice brings (whisper-small, internvl2-1b, llama4-scout, grok-1,
+   command-r-35b, mistral-nemo-12b, yi-34b) and the pure-SSM family,
+   reduced, fp32: logits and greedy ServeEngine tokens card vs CPU, and
+   for MoE every routing call's picks and kept mask identical (the
+   smallest top-k probability gap printed);
 5. a narrow granite in bf16 (granite-8b's attention geometry and vocab,
    d_model 1024, 4 layers) on the card against the same weights on the CPU:
    bucketed right-padded prefill and decode logits agree, and every token
@@ -147,7 +157,23 @@ Phases, each of which raises on failure (the script then exits nonzero):
    off, a mid-round crash, a local step's kernels against their plain
    versions and its device time, the frame codec's parts timed; then
    bench_fed.py's own configuration (reduced granite, 6 rounds) from 6
-   inits: its loss claim on the mean, its int8_ef replay, its wire cut.
+   inits: its loss claim on the mean, its int8_ef replay, its wire cut;
+19. ``serve_moe``: llama4-scout-17b-a16e at full width cut to 12 of 48
+   layers (57 GB bf16) over dense lanes, max_len 9216, 16 requests, one
+   of 9000 tokens (past the 8192 chunk); grok-1-314b at full width cut to
+   4 of 64 layers (42.6 GB) over the paged pool; each: exact launches, a
+   seeded rerun's tokens equal (lanes share expert capacity at a decode
+   step, so no lone-request witness), every kernel and every MoE layer
+   (against ``apply_moe_plain``, one routing) held at the served shapes;
+20. ``serve_encdec``: whisper-small at full width and depth, 16 requests
+   each with its 1500 x 768 frames from ``FrontendPipeline``; 21.
+   ``serve_vlm``: internvl2-1b at full width and depth, 16 requests each
+   behind 1024 frontend rows; each: exact launches, every request's
+   tokens bit-equal to a lone-request witness's, the kernels held at the
+   served shapes;
+22. ``serve_dense_configs``: mistral-nemo-12b at full width and depth
+   (q_dim 4096 != d_model 5120) over bucketed dense lanes and over the
+   paged pool: exact launches, the kernels held at the served shapes.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
@@ -165,7 +191,10 @@ exactly each layer's kernels once per forward its (stage, microbatch)
 runs (``pp_launches``) and no decode kernel, a speculative path exactly
 its prefills' and its target and draft steps' launches, rollback's
 replayed steps included, a fleet exactly the sum over its units of their
-prefill dispatches' and steps' launches.
+prefill dispatches' and steps' launches, the other families' paths
+exactly their prefill dispatches' and decode steps' (``family_launches``:
+whisper's encoder, decoder and cross-attention flash calls and its two
+decode calls a layer).  Each phase's wall time is logged.
 
 The line before the last is a JSON object of per-kernel numbers, the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -181,6 +210,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -218,7 +248,8 @@ BF16_MODEL_TOL = 0.25
 
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
           "serve_stages", "agent", "serve_spec", "serve_fleet", "fed", "serve_rwkv",
-          "serve_hybrid", "train", "train_hybrid", "resnet", "train_pp")
+          "serve_hybrid", "serve_moe", "serve_encdec", "serve_vlm", "serve_dense_configs",
+          "train", "train_hybrid", "resnet", "train_pp")
 # the phases that serve full-width granite-8b, one set of weights between them
 GRANITE_PHASES = ("serve", "serve_paged", "serve_stages", "agent", "serve_spec", "serve_fleet",
                   "fed")
@@ -487,29 +518,56 @@ def phase_kernels(results: dict) -> None:
     decode_d112(gen)
     rwkv6_kernel(results, gen)
     ssd_kernel(results, gen)
+    family_kernels(results, gen)
+
+
+def flash_pairs(t: int, tk: int, causal: bool, chunk: int) -> int:
+    """(query, key) pairs a flash call attends: key <= query where causal,
+    both in one chunk where chunked."""
+    q = np.arange(t)[:, None]
+    k = np.arange(tk)[None, :]
+    seen = np.ones((t, tk), bool)
+    if causal:
+        seen &= k <= q
+    if chunk:
+        seen &= q // chunk == k // chunk
+    return int(seen.sum())
 
 
 def flash_case(shape: str, b: int, t: int, h: int, g: int, d: int,
-               gen: torch.Generator) -> dict:
-    """Flash, causal, bf16 and fp32 against the plain version, then kernel,
-    plain and SDPA times over input sets cycled out of L2; the bound counts
-    q, k and v read and the output written once."""
+               gen: torch.Generator, tk: int = 0, causal: bool = True, chunk: int = 0,
+               fast_iters: int = FAST_ITERS) -> dict:
+    """Flash (causal unless told, ``tk`` keys where it is not T, ``chunk``
+    for chunked-local) in bf16 and fp32 against the plain version, then
+    kernel, plain and SDPA (with the chunk's mask where chunked) times over
+    input sets cycled out of L2; the bound counts q, k and v read and the
+    output written once, and the pairs the mask leaves."""
     from repro_torch.kernels import flash_attention as kfa
-    sets = [tuple(_rand((b, t, n, d), torch.bfloat16, gen) for n in (h, g, g))
-            for _ in range(n_sets(2 * (2 * b * t * h * d + 2 * b * t * g * d)))]
+    tk = tk or t
+    kw = dict(causal=causal, chunk=chunk)
+    io_bytes = 2 * (2 * b * t * h * d + 2 * b * tk * g * d)
+    sets = [(_rand((b, t, h, d), torch.bfloat16, gen), _rand((b, tk, g, d), torch.bfloat16, gen),
+             _rand((b, tk, g, d), torch.bfloat16, gen)) for _ in range(n_sets(io_bytes))]
     q, k, v = sets[0]
-    err = check_close(f"flash {shape}", kfa.flash_attention_cuda(q, k, v),
-                      kfa.flash_attention_plain(q, k, v), BF16_TOL, relative=True)
+    err = check_close(f"flash {shape}", kfa.flash_attention_cuda(q, k, v, **kw),
+                      kfa.flash_attention_plain(q, k, v, **kw), BF16_TOL, relative=True)
     q32, k32, v32 = q.float(), k.float(), v.float()
-    check_close(f"flash {shape} f32", kfa.flash_attention_cuda(q32, k32, v32),
-                kfa.flash_attention_plain(q32, k32, v32), F32_TOL, relative=False)
-    kern = [lambda a=a: kfa.flash_attention_cuda(*a) for a in sets]
-    lib = [lambda a=a: _sdpa_gqa(*a, is_causal=True) for a in sets]
-    ms, lib_ms = sync_time_ms(kern, iters=FAST_ITERS), sync_time_ms(lib, iters=FAST_ITERS)
-    dev_ms, lib_dev_ms = device_ms(kern), device_ms(lib)
-    plain_ms = sync_time_ms([lambda a=a: kfa.flash_attention_plain(*a) for a in sets], iters=5)
-    b_ms, b_by = bound(4.0 * b * h * d * (t * (t + 1) // 2), PEAK_BF16_FLOPS,
-                       2 * (2 * b * t * h * d + 2 * b * t * g * d))
+    check_close(f"flash {shape} f32", kfa.flash_attention_cuda(q32, k32, v32, **kw),
+                kfa.flash_attention_plain(q32, k32, v32, **kw), F32_TOL, relative=False)
+    if chunk:
+        qp, kp = torch.arange(t, device="cuda")[:, None], torch.arange(tk, device="cuda")[None]
+        mask = (kp <= qp) & (qp // chunk == kp // chunk)
+        sdpa_kw = dict(attn_mask=mask)
+    else:
+        sdpa_kw = dict(is_causal=causal)
+    kern = [lambda a=a: kfa.flash_attention_cuda(*a, **kw) for a in sets]
+    lib = [lambda a=a: _sdpa_gqa(*a, **sdpa_kw) for a in sets]
+    ms, lib_ms = sync_time_ms(kern, iters=fast_iters), sync_time_ms(lib, iters=fast_iters)
+    dev_ms, lib_dev_ms = device_ms(kern, iters=fast_iters), device_ms(lib, iters=fast_iters)
+    plain_ms = sync_time_ms([lambda a=a: kfa.flash_attention_plain(*a, **kw) for a in sets],
+                            iters=5, warmup=1)
+    b_ms, b_by = bound(4.0 * b * h * d * flash_pairs(t, tk, causal, chunk), PEAK_BF16_FLOPS,
+                       io_bytes)
     log(f"[kernels] flash {shape}: max_abs_err {err:.3e}  kernel {ms:.4f} ms (device "
         f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (device {lib_dev_ms:.4f})  "
         f"bound {b_ms:.4f} ms ({b_by})")
@@ -740,6 +798,129 @@ def paged_kernel(results: dict, gen: torch.Generator) -> None:
                 "PyTorch call computes the function",
         shape=f"B={b} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16, {n_live} live "
               f"positions")
+
+
+# the other families' shapes on their paths' kernels: (what, B, T, Tk, H, G, D,
+# causal, chunk) for flash, one request's prefill as the engine dispatches it
+FAMILY_FLASH = (
+    ("whisper-small encoder", 1, 1500, 1500, 12, 12, 64, False, 0),
+    ("whisper-small cross-attention, a 64-token prompt", 1, 64, 1500, 12, 12, 64, False, 0),
+    ("internvl2-1b, 1024 rows + 64 tokens", 1, 1088, 1088, 14, 2, 64, True, 0),
+    ("llama4-scout chunked-local 8192, 9000 tokens", 1, 9000, 9000, 40, 8, 128, True, 8192),
+    ("grok-1, 600 tokens", 1, 600, 600, 48, 8, 128, True, 0),
+)
+# (what, B, S, H, G, D, every position valid) for the dense decode kernel
+FAMILY_DECODE = (
+    ("llama4-scout ring lanes", 8, 8192, 40, 8, 128, False),
+    ("whisper-small self-attention", 8, 448, 12, 12, 64, False),
+    ("whisper-small cross-attention", 8, 1500, 12, 12, 64, True),
+    ("internvl2-1b", 8, 1536, 14, 2, 64, False),
+    ("mistral-nemo-12b", 8, 1024, 32, 8, 128, False),
+)
+# (what, B, H, G) for the paged kernel at bs 16, 64 blocks a lane
+FAMILY_PAGED = (("grok-1", 16, 48, 8), ("mistral-nemo-12b", 16, 32, 8))
+# (what, rows, d_model) for RMSNorm: a prefill's rows and a decode step's
+FAMILY_RMS = (("whisper-small", 1500, 768), ("internvl2-1b", 1088, 896),
+              ("llama4-scout / mistral-nemo", 9000, 5120), ("grok-1", 600, 6144),
+              ("grok-1 decode", 16, 6144))
+
+
+def family_kernels(results: dict, gen: torch.Generator) -> None:
+    """Flash, both decode kernels and RMSNorm at the shapes the other
+    families' paths give them (the tables above), each against its plain
+    version (bf16 within BF16_TOL x max(1, |ref|), flash also in fp32), and
+    timed beside its plain version, its bound and the PyTorch call where
+    one computes it (SDPA, with the chunk mask or the valid mask;
+    ``F.rms_norm``).  The rows go under each kernel's ``family_shapes``."""
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import paged_attention as kpaged
+    from repro_torch.kernels import rmsnorm as krms
+    bf = torch.bfloat16
+    rows = results["flash_attention"].setdefault("family_shapes", [])
+    for what, b, t, tk, h, g, d, causal, chunk in FAMILY_FLASH:
+        shape = (f"{what}: B={b} T={t} Tk={tk} H={h} G={g} D={d} "
+                 f"{'chunk ' + str(chunk) if chunk else 'causal' if causal else 'full'} bf16")
+        rows.append(flash_case(shape, b, t, h, g, d, gen, tk=tk, causal=causal, chunk=chunk,
+                               fast_iters=20 if t * tk > 4e6 else FAST_ITERS))
+    rows = results["decode_attention"].setdefault("family_shapes", [])
+    for what, b, s, h, g, d, full in FAMILY_DECODE:
+        lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+        lens[0] = s
+        valid = torch.arange(s, device="cuda")[None, :] < (s if full else lens[:, None])
+        valid = valid.expand(b, s).contiguous()
+        scale = d ** -0.5
+        sets = [(_rand((b, 1, h, d), bf, gen), _rand((b, s, g, d), bf, gen),
+                 _rand((b, s, g, d), bf, gen)) for _ in range(n_sets(2 * b * s * g * d * 2))]
+        q, ck, cv = sets[0]
+        err = check_close(f"decode {what}", kdec.decode_attention_cuda(q, ck, cv, valid, scale),
+                          kdec.decode_attention_plain(q, ck, cv, valid, scale), BF16_TOL,
+                          relative=True)
+        mask4 = valid[:, None, None, :]
+        kern = [lambda a=a: kdec.decode_attention_cuda(*a, valid, scale) for a in sets]
+        lib = [lambda a=a: _sdpa_gqa(*a, attn_mask=mask4) for a in sets]
+        ms, lib_ms = sync_time_ms(kern, iters=FAST_ITERS), sync_time_ms(lib, iters=FAST_ITERS)
+        dev_ms, lib_dev_ms = device_ms(kern), device_ms(lib)
+        plain_ms = sync_time_ms([lambda a=a: kdec.decode_attention_plain(*a, valid, scale)
+                                 for a in sets])
+        live = int(valid.sum().item())
+        b_ms, b_by = bound(4.0 * h * d * live, PEAK_BF16_FLOPS,
+                           2 * live * g * d * 2 + 2 * 2 * b * h * d + b * s)
+        shape = f"{what}: B={b} S={s} H={h} G={g} D={d} bf16, {live} live positions"
+        log(f"[kernels] decode {shape}: max_abs_err {err:.3e}  kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (device "
+            f"{lib_dev_ms:.4f})  bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                         library_device_ms=lib_dev_ms))
+    rows = results["paged_decode_attention"].setdefault("family_shapes", [])
+    rng = np.random.default_rng(1)
+    for what, b, h, g in FAMILY_PAGED:
+        d, bs, max_blocks, scale = 128, 16, 64, 128 ** -0.5
+        pos = rng.integers(16, max_blocks * bs, size=b)
+        tables, n_pool = paged_tables(rng, pos, bs, max_blocks, n_shared=0, shared_lanes=0)
+        bt = torch.as_tensor(tables, device="cuda")
+        pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+        sets = [(_rand((b, 1, h, d), bf, gen), _rand((n_pool, bs, g, d), bf, gen),
+                 _rand((n_pool, bs, g, d), bf, gen))
+                for _ in range(n_sets(2 * n_pool * bs * g * d * 2))]
+        q, kp, vp = sets[0]
+        err = check_close(f"paged {what}", kpaged.paged_decode_attention_cuda(
+            q, kp, vp, bt, pos_t, scale), kpaged.paged_decode_attention_plain(
+            q, kp, vp, bt, pos_t, scale), BF16_TOL, relative=True)
+        kern = [lambda a=a: kpaged.paged_decode_attention_cuda(*a, bt, pos_t, scale)
+                for a in sets]
+        ms, dev_ms = sync_time_ms(kern, iters=FAST_ITERS), device_ms(kern)
+        plain_ms = sync_time_ms([lambda a=a: kpaged.paged_decode_attention_plain(
+            *a, bt, pos_t, scale) for a in sets])
+        n_live = int((pos + 1).sum())
+        b_ms, b_by = bound(4.0 * h * d * n_live, PEAK_BF16_FLOPS,
+                           2 * n_live * g * d * 2 + 2 * 2 * b * h * d + tables.nbytes + 4 * b)
+        shape = (f"{what}: B={b} bs={bs} max_blocks={max_blocks} H={h} G={g} D={d} bf16, "
+                 f"{n_live} live positions")
+        log(f"[kernels] paged {shape}: max_abs_err {err:.3e}  kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None, device_ms=dev_ms))
+    rows = results["rmsnorm"].setdefault("family_shapes", [])
+    for what, n, d in FAMILY_RMS:
+        sets = [(_rand((n, d), bf, gen), (1 + 0.1 * _rand((d,), torch.float32, gen)).to(bf))
+                for _ in range(n_sets(n * d * 2 * 2))]
+        x, sc = sets[0]
+        err = check_close(f"rmsnorm {what}", krms.rmsnorm_cuda(x, sc), krms.rmsnorm_plain(x, sc),
+                          BF16_TOL, relative=True)
+        kern = [lambda a=a: krms.rmsnorm_cuda(*a) for a in sets]
+        lib = [lambda a=a: F.rms_norm(a[0], (d,), a[1], 1e-5) for a in sets]
+        ms, lib_ms = sync_time_ms(kern, iters=FAST_ITERS), sync_time_ms(lib, iters=FAST_ITERS)
+        dev_ms, lib_dev_ms = device_ms(kern), device_ms(lib)
+        plain_ms = sync_time_ms([lambda a=a: krms.rmsnorm_plain(*a) for a in sets])
+        b_ms, b_by = bound(4.0 * n * d, PEAK_F32_FLOPS, n * d * 2 * 2 + d * 2)
+        shape = f"{what}: x ({n},{d}) bf16"
+        log(f"[kernels] rmsnorm {shape}: max_abs_err {err:.3e}  kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  F.rms_norm {lib_ms:.4f} ms (device "
+            f"{lib_dev_ms:.4f})  bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                         library_device_ms=lib_dev_ms))
 
 
 def decode_floor(results: dict, gen: torch.Generator) -> None:
@@ -1024,6 +1205,8 @@ def phase_parity(n_layers: int = 4) -> None:
         f"cache); launches {counts}")
     for arch in RECURRENT_ARCHS:
         recurrent_parity(arch, "float32", n_layers)
+    for arch in FAMILY_ARCHS:
+        family_parity(arch, n_layers)
 
 
 def phase_parity_bf16(n_layers: int = 4) -> None:
@@ -2368,7 +2551,7 @@ def phase_serve_recurrent(results: dict, arch: str, path: str, n_requests: int =
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-    backend.restore = restore
+    del backend.restore    # the class's method again, and no cycle through the lanes
     restores = [all(torch.equal(lane[k].cpu(), snap[k]) for k in snap)
                 for snap, lane in restored]
     copy_bytes = sum(t.numel() * t.element_size() for _, lane in restored
@@ -2452,6 +2635,460 @@ def phase_serve_recurrent(results: dict, arch: str, path: str, n_requests: int =
         profile_step(lambda: model.prefill(params, {"tokens": long_prompt}, max_len),
                      f"{arch} prefill dispatch, 1 x {long_prompt.shape[1]} tokens")
     add_launches(results, counts, path)
+
+
+# ---------------------------------------------------------------------------
+# phases 19-22: the other families (MoE, enc-dec, vlm, the dense configs)
+# ---------------------------------------------------------------------------
+
+# the archs this slice brings, and the pure-SSM family (no registry config)
+FAMILY_ARCHS = ("whisper-small", "internvl2-1b", "llama4-scout-17b-a16e", "grok-1-314b",
+                "command-r-35b", "mistral-nemo-12b", "yi-34b", "pure-ssm")
+
+
+def family_config(arch: str):
+    """``arch``'s published config; "pure-ssm" is zamba2-7b's Mamba2 layers
+    alone (family ssm, no shared block)."""
+    from repro_torch.configs import get_config
+    if arch == "pure-ssm":
+        return dataclasses.replace(get_config("zamba2-7b"), arch_id="pure-ssm", family="ssm",
+                                   attn_every=0)
+    return get_config(arch)
+
+
+def family_inputs(cfg, n: int, seed: int = 0) -> list:
+    """Per-request model inputs beside the prompt, from ``FrontendPipeline``:
+    whisper's frames, internvl2's frontend rows (numpy (P, D) each), else
+    none."""
+    from repro_torch.data.synthetic import DataConfig, FrontendPipeline
+    if not cfg.frontend:
+        return [{} for _ in range(n)]
+    key = "frames" if cfg.family == "audio" else "frontend"
+    rows = FrontendPipeline(DataConfig(cfg.vocab_size, 2, n, seed), cfg.frontend_seq,
+                            cfg.d_model, key=key).batch(0)[key]
+    return [{key: r} for r in rows]
+
+
+def family_launches(cfg) -> tuple:
+    """Launches of one prefill dispatch and of one decode step of a dense,
+    MoE, vlm or encoder-decoder model, by kernel: flash once a layer's
+    self-attention (and, in whisper, once each encoder layer and each
+    decoder layer's cross-attention); the decode kernel once a layer's
+    self-attention (whisper: and its cross-attention) in a decode step, or
+    the paged kernel over a pool; RMSNorm twice a layer and once at the end
+    (whisper: the encoder's two a layer and its final norm, the decoder's
+    three a layer and its final norm)."""
+    from repro_torch.kernels import ops
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    n = cfg.n_layers
+    if cfg.n_enc_layers:
+        e = cfg.n_enc_layers
+        return (dict(zero, flash_attention=e + 2 * n, rmsnorm=2 * e + 1 + 3 * n + 1),
+                dict(zero, decode_attention=2 * n, rmsnorm=3 * n + 1))
+    return (dict(zero, flash_attention=n, rmsnorm=2 * n + 1),
+            dict(zero, decode_attention=n, rmsnorm=2 * n + 1))
+
+
+def paged_launches(per_step: dict) -> dict:
+    """A decode step's launches over a block pool: the paged kernel in the
+    dense decode kernel's place."""
+    return dict(per_step, decode_attention=0, paged_decode_attention=per_step["decode_attention"])
+
+
+class MoeRecorder:
+    """Wraps ``models.moe.apply_moe`` while active: each call's routing is
+    recorded (top-k picks, kept picks, the smallest gap between a token's
+    k-th and (k+1)-th probability) and, with ``check``, its output is held
+    to ``apply_moe_plain`` on the same input and the same routing (bf16
+    within BF16_TOL x max(1, |ref|), fp32 within MODEL_TOL x max(1,
+    |ref|)), the plain version's own routing found equal."""
+
+    def __init__(self, check: bool):
+        self.check = check
+        self.calls, self.margin, self.gap = 0, 0.0, float("inf")
+        self.picks, self.kept, self.tokens = 0, 0, 0
+        self.routes = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as tmoe
+        self.real = real = tmoe.apply_moe
+
+        def recorded(params, cfg, x, capacity_factor=1.25, group_size=4096, rt=None):
+            g, n = tmoe.groups(x.shape[0] * x.shape[1], group_size)
+            rt = tmoe.route(params, cfg, x.reshape(g, n, x.shape[-1]), capacity_factor)
+            y, aux = real(params, cfg, x, capacity_factor, group_size, rt=rt)
+            top = torch.topk(rt.probs, min(cfg.top_k + 1, cfg.n_experts), dim=-1).values
+            if top.shape[-1] > cfg.top_k:
+                self.gap = min(self.gap, (top[..., cfg.top_k - 1] - top[..., cfg.top_k])
+                               .min().item())
+            self.routes.append((rt.mask.cpu(), rt.keep.cpu()))
+            self.picks += int(rt.mask.sum())
+            self.kept += int(rt.keep.sum())
+            self.tokens += g * n
+            if self.check:
+                own = tmoe.route(params, cfg, x.reshape(g, n, x.shape[-1]), capacity_factor)
+                if not (torch.equal(own.mask, rt.mask) and torch.equal(own.keep, rt.keep)):
+                    raise AssertionError("apply_moe_plain's routing differs on the same input")
+                yp, _ = tmoe.apply_moe_plain(params, cfg, x, capacity_factor, group_size,
+                                             rt=rt)
+                tol = BF16_TOL if x.dtype == torch.bfloat16 else MODEL_TOL
+                self.margin = max(self.margin, gate(y, yp, tol, True))
+                if not torch.isfinite(y).all() or self.margin > 1.0:
+                    raise AssertionError(f"MoE layer call {self.calls}: apply_moe vs "
+                                         f"apply_moe_plain margin {self.margin:.3f}")
+            self.calls += 1
+            return y, aux
+
+        tmoe.apply_moe = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as tmoe
+        tmoe.apply_moe = self.real
+        return False
+
+    def summary(self) -> str:
+        return (f"{self.calls} MoE calls, {self.tokens} tokens, {self.picks} top-k picks, "
+                f"{self.kept} kept ({self.picks - self.kept} dropped at capacity), smallest "
+                f"top-k probability gap {self.gap:.3e}"
+                + (f", worst margin vs apply_moe_plain {self.margin:.3f}" if self.check else ""))
+
+
+def family_parity(arch: str, n_layers: int = 4) -> None:
+    """Reduced ``arch`` (``n_layers`` layers, fp32) on the card against the
+    same weights on the CPU: prefill of two prompts (with whisper's frames
+    or internvl2's rows) and 4 greedy decode steps, logits within MODEL_TOL
+    (x max(1, |ref|) for the recurrent pure SSM) and the same argmax;
+    greedy ServeEngine tokens identical (5 requests on 2 lanes, each with
+    its inputs); for MoE every routing call's top-k picks and kept mask
+    identical, the smallest top-k probability gap printed beside them."""
+    from repro_torch.configs import RunConfig, reduced_config
+    from repro_torch.convert import move_params
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import ServeEngine
+    tag = f"[parity] {arch}"
+    cfg = dataclasses.replace(reduced_config(family_config(arch)), n_layers=n_layers)
+    rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False)
+    cpu, gpu = build_model(cfg, rcfg, device="cpu"), build_model(cfg, rcfg, device="cuda")
+    p_cpu = cpu.init(0)
+    p_gpu = move_params(p_cpu, "cuda")
+    rng = np.random.default_rng(3)
+    v, max_len = cfg.vocab_size, 64
+    inputs = family_inputs(cfg, 2, seed=1)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, v, size=(2, 20)))}
+    batch.update({k: torch.as_tensor(np.stack([i[k] for i in inputs])) for k in inputs[0]})
+    relative = cfg.family in ("ssm",)
+    worst = 0.0
+    recs = {}
+    with torch.no_grad():
+        for dev, model, params in (("cpu", cpu, p_cpu), ("cuda", gpu, p_gpu)):
+            with MoeRecorder(check=False) as rec:
+                b = {k: t.to(model.device) for k, t in batch.items()}
+                logits, cache = model.prefill(params, b, max_len)
+                out = [logits.cpu()]
+                for _ in range(4):
+                    nxt = torch.argmax(out[-1][:, :v], -1)[:, None]
+                    logits, cache = model.decode_step(params, cache, nxt.to(model.device))
+                    out.append(logits.cpu())
+            recs[dev] = (rec, out)
+        (rc, lc), (rg, lg) = recs["cpu"], recs["cuda"]
+        for i, (a, b) in enumerate(zip(lg, lc)):
+            worst = max(worst, check_close(f"{tag} logits {i}", a[:, :v], b[:, :v], MODEL_TOL,
+                                           relative))
+            if not torch.equal(torch.argmax(a[:, :v], -1), torch.argmax(b[:, :v], -1)):
+                raise AssertionError(f"{tag} step {i}: card and CPU argmax differ")
+        if len(rg.routes) != len(rc.routes) or any(
+                not (torch.equal(mg, mc) and torch.equal(kg, kc))
+                for (mg, kg), (mc, kc) in zip(rg.routes, rc.routes)):
+            raise AssertionError(f"{tag}: expert picks or kept masks differ card vs CPU")
+        prompts = [rng.integers(0, v, size=n) for n in (5, 17, 33, 9, 12)]
+        per_req = family_inputs(cfg, len(prompts), seed=2)
+        served = {}
+        for dev, model, params in (("cpu", cpu, p_cpu), ("cuda", gpu, p_gpu)):
+            eng = ServeEngine(model, params, max_batch=2, max_len=max_len)
+            for p, ex in zip(prompts, per_req):
+                eng.submit(p, max_new=8, **ex)
+            served[dev] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        lanes = eng.backend.name
+    if served["cuda"] != served["cpu"] or len(served["cuda"]) != len(prompts):
+        raise AssertionError(f"{tag}: greedy tokens differ card vs CPU: {served}")
+    moe = (f"; MoE: {rg.summary()}, picks and kept masks identical card vs CPU"
+           if rg.calls else "")
+    log(f"{tag} reduced, {n_layers} layers, fp32: logits card vs CPU max |err| {worst:.3e} "
+        f"(tol {MODEL_TOL}{' x max(1, |ref|)' if relative else ''}); greedy tokens identical for "
+        f"{len(prompts)} requests ({gpu.decode_state.kind} state, {lanes} lanes){moe}")
+
+
+def family_model(arch: str, n_layers: int = 0):
+    """``arch`` at its published widths (cut to ``n_layers`` where given),
+    bf16, random weights from seed 0 drawn on the card: (model, params)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.convert import leaves
+    from repro_torch.models.api import build_model
+    cfg = family_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16",
+                                       remat=False), device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    cut = f" (cut from {family_config(arch).n_layers})" if n_layers else ""
+    log(f"[{arch}] {cfg.n_layers} layers{cut} d_model {cfg.d_model}: {n_params} params "
+        f"({n_params * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def family_serve(tag: str, model, params, prompts, inputs, max_new: int, max_batch: int,
+                 max_len: int, **engine_kw) -> dict:
+    """Serve ``prompts`` (each with its ``inputs``) through a fresh
+    ServeEngine after a warm-up request: tokens by prompt index, the run's launches,
+    wall time, snapshot and engine.  Every request must finish with
+    ``max_new`` tokens inside the vocabulary."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+    eng = ServeEngine(model, params, max_batch=max_batch, max_len=max_len, **engine_kw)
+    v = model.cfg.vocab_size
+    with torch.no_grad():
+        eng.submit(prompts[0][:8], max_new=2, **inputs[0])              # warm-up
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new=max_new, **ex) for p, ex in zip(prompts, inputs)]
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    if len(done) != len(prompts) or any(len(r.out_tokens) != max_new for r in done):
+        raise AssertionError(f"{tag}: {len(done)}/{len(prompts)} requests finished with "
+                             f"{[len(r.out_tokens) for r in done]} tokens")
+    if any(not 0 <= t < v for r in done for t in r.out_tokens):
+        raise AssertionError(f"{tag}: a generated token lies outside the vocabulary")
+    by_rid = {r.rid: r.out_tokens for r in done}
+    return dict(tokens={i: by_rid[rid] for i, rid in enumerate(rids)}, counts=counts, wall=wall,
+                snap=eng.metrics_snapshot(), eng=eng)
+
+
+def lone_witness(model, params, prompts, inputs, max_new: int, max_batch: int,
+                 max_len: int) -> dict:
+    """Each request served alone (submitted and drained before the next) by
+    one ServeEngine of the same lanes: the same prefill (one request at its
+    exact length) and the same decode shapes as a shared run, so a lane's
+    tokens are bit-equal to its shared run's wherever lanes do not couple.
+    Tokens by prompt index."""
+    from repro_torch.serving.engine import ServeEngine
+    eng = ServeEngine(model, params, max_batch=max_batch, max_len=max_len)
+    out = {}
+    with torch.no_grad():
+        for rid, (p, ex) in enumerate(zip(prompts, inputs)):
+            eng.submit(p, max_new=max_new, **ex)
+            out[rid] = eng.run_until_drained()[-1].out_tokens
+    return out
+
+
+def report_run(tag: str, run: dict, prompts, max_new: int, max_batch: int, max_len: int,
+               per_prefill: dict, per_step: dict) -> None:
+    """The run's launches held to its prefill dispatches' and decode steps'
+    (``family_launches``), and its tok/s, TTFT and TPOT logged."""
+    snap, eng, counts = run["snap"], run["eng"], run["counts"]
+    want = {k: per_prefill[k] * snap.prefill_dispatches + per_step[k] * eng.steps
+            for k in counts}
+    check_launches(counts, want, f"{tag} run of {snap.prefill_dispatches} prefill dispatches "
+                                 f"and {eng.steps} decode steps")
+    n = sum(len(t) for t in run["tokens"].values())
+    lengths = [len(p) for p in prompts]
+    log(f"{tag} {len(prompts)} requests, prompts {min(lengths)}-{max(lengths)} tokens, max_new "
+        f"{max_new}, max_batch {max_batch}, max_len {max_len}, {eng.backend.name} lanes: {n} "
+        f"tokens in {run['wall']:.3f} s = {n / run['wall']:.1f} tok/s; "
+        f"{snap.prefill_dispatches} prefill dispatches, {eng.steps} decode steps; TTFT mean "
+        f"{snap.ttft.mean * 1e3:.1f} ms p95 {snap.ttft.p95 * 1e3:.1f} ms, TPOT mean "
+        f"{snap.tpot.mean * 1e3:.2f} ms; launches {nonzero(counts)} = a prefill dispatch "
+        f"{nonzero(per_prefill)} x {snap.prefill_dispatches} + a decode step "
+        f"{nonzero(per_step)} x {eng.steps}")
+
+
+def served_kernels(results: dict, tag: str, path: str, model, params, eng, batch: dict,
+                   max_len: int, per_prefill: dict, per_step: dict, moe: bool = False) -> None:
+    """``check_served_kernels`` over a B=1 prefill of ``batch`` and 3 decode
+    steps of every lane of ``eng`` (and, with ``moe``, every MoE layer of
+    them held to ``apply_moe_plain``); the result under each kernel's
+    ``served_shapes``."""
+    toks = np.zeros((eng.max_batch, 1), np.int32)
+    active = np.ones((eng.max_batch,), bool)
+
+    def drive():
+        model.prefill(params, batch, max_len)
+        for _ in range(3):
+            eng.backend.step(params, toks, active)
+    want = {k: per_prefill[k] + 3 * per_step[k] for k in per_prefill}
+    with torch.no_grad(), MoeRecorder(check=True) as rec:
+        served = check_served_kernels(tag, drive, want)
+    if moe and not rec.calls:
+        raise AssertionError(f"{tag}: no MoE layer ran")
+    log(f"{tag} kernels at the served shapes against their plain versions, worst margin "
+        f"(error / limit): " + "; ".join(f"{k} {v['calls']} calls, first two inputs "
+                                         f"{v['shapes'][:3]}, {v['margin']:.3f}"
+                                         for k, v in served.items())
+        + (f"; {rec.summary()}" if moe else ""))
+    for name, r in served.items():
+        entry = results.setdefault(name, {"name": name})
+        entry.setdefault("served_shapes", {})[path] = dict(
+            r, shapes=[[list(d) for d in s] for s in r["shapes"]])
+
+
+def phase_serve_moe(results: dict) -> None:
+    """(a) llama4-scout-17b-a16e at full width cut to 12 of its 48 layers,
+    bf16, over dense lanes (chunked-local attention is not poolable):
+    max_batch 8, max_len 9216, 16 greedy requests of 16-600 tokens and one
+    of 9000 (past the 8192 chunk: the ring and the chunk mask both run),
+    max_new 16, each prefilled alone at its exact length (MoE takes no
+    padded prefill); (b) grok-1-314b at full width cut to 4 of its 64
+    layers over the paged pool (max_batch 16, 1024 16-token blocks, no
+    preemption), 16 requests of 16-600 tokens, max_new 16.  Each: exact
+    launches, a second seeded run's tokens equal (lanes share expert
+    capacity at a decode step, so a lone-request witness would differ: the
+    rerun is the witness), each kernel against its plain version and every
+    MoE layer against ``apply_moe_plain`` at the served shapes (the longest
+    prefill and 3 decode steps)."""
+    from repro_torch.serving.engine import EngineConfig
+    rng = np.random.default_rng(11)
+    for arch, n_layers, path in (("llama4-scout-17b-a16e", 12, "moe llama4"),
+                                 ("grok-1-314b", 4, "moe grok")):
+        tag = f"[serve-moe] {arch}"
+        t_phase = time.perf_counter()
+        model, params = family_model(arch, n_layers)
+        cfg = model.cfg
+        llama = cfg.attention == "chunked_local"
+        max_new = 16
+        if llama:
+            max_batch, max_len, kw = 8, 9216, {}
+            lengths = list(np.linspace(16, 600, 15).astype(int)) + [9000]
+        else:
+            max_batch, max_len = 16, 1024
+            kw = dict(config=EngineConfig(kv_blocks=max_batch * max_len // 16,
+                                          kv_block_size=16))
+            lengths = list(np.linspace(16, 600, 16).astype(int))
+        prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lengths]
+        inputs = [{} for _ in prompts]
+        per_prefill, per_step = family_launches(cfg)
+        if not llama:
+            per_step = paged_launches(per_step)
+        run = family_serve(tag, model, params, prompts, inputs, max_new, max_batch, max_len,
+                           **kw)
+        if run["eng"].backend.name != ("dense" if llama else "paged"):
+            raise AssertionError(f"{tag}: served over {run['eng'].backend.name} lanes")
+        report_run(tag, run, prompts, max_new, max_batch, max_len, per_prefill, per_step)
+        again = family_serve(tag, model, params, prompts, inputs, max_new, max_batch, max_len,
+                             **kw)
+        if again["tokens"] != run["tokens"]:
+            raise AssertionError(f"{tag}: a seeded rerun's tokens differ")
+        log(f"{tag} seeded rerun: tokens equal ({again['wall']:.3f} s)")
+        eng = run["eng"]
+        toks = np.zeros((max_batch, 1), np.int32)
+        active = np.ones((max_batch,), bool)
+        long = {"tokens": torch.as_tensor(prompts[-1][None], device=model.device)}
+        served_kernels(results, tag, path, model, params, eng, long, max_len, per_prefill,
+                       per_step, moe=True)
+        with torch.no_grad():
+            profile_step(lambda: eng.backend.step(params, toks, active),
+                         f"{arch} decode step, batch {max_batch}")
+        add_launches(results, run["counts"], path)
+        del model, params, eng, run, again
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{tag} phase part {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serve_family(results: dict, arch: str, path: str, max_batch: int, max_len: int,
+                       lengths, max_new: int = 32) -> None:
+    """``arch`` (whisper-small or internvl2-1b) at its published widths and
+    depth, bf16, over dense lanes: 16 greedy requests with their frames or
+    1024 frontend rows from ``FrontendPipeline``, each prefilled alone at
+    its exact length; exact launches; every request's tokens bit-equal to
+    a lone-request witness's; each kernel against its plain version at the
+    served shapes (a prefill of the longest prompt and 3 decode steps)."""
+    tag = f"[serve-{path}] {arch}"
+    model, params = family_model(arch)
+    cfg = model.cfg
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lengths]
+    inputs = family_inputs(cfg, len(prompts), seed=3)
+    per_prefill, per_step = family_launches(cfg)
+    run = family_serve(tag, model, params, prompts, inputs, max_new, max_batch, max_len)
+    if run["eng"].backend.name != "dense" or run["snap"].prefill_dispatches != len(prompts):
+        raise AssertionError(f"{tag}: {run['eng'].backend.name} lanes, "
+                             f"{run['snap'].prefill_dispatches} prefill dispatches")
+    report_run(tag, run, prompts, max_new, max_batch, max_len, per_prefill, per_step)
+    t0 = time.perf_counter()
+    witness = lone_witness(model, params, prompts, inputs, max_new, max_batch, max_len)
+    if witness != run["tokens"]:
+        bad = [rid for rid in witness if witness[rid] != run["tokens"][rid]]
+        raise AssertionError(f"{tag}: requests {bad} differ from their lone-request witnesses")
+    log(f"{tag} every request's tokens bit-equal to its lone-request witness's "
+        f"({time.perf_counter() - t0:.1f} s)")
+    eng = run["eng"]
+    toks = np.zeros((max_batch, 1), np.int32)
+    active = np.ones((max_batch,), bool)
+    longest = int(np.argmax(lengths))
+    b = {"tokens": torch.as_tensor(prompts[longest][None], device=model.device)}
+    b.update({k: torch.as_tensor(v[None], device=model.device)
+              for k, v in inputs[longest].items()})
+    served_kernels(results, tag, path, model, params, eng, b, max_len, per_prefill, per_step)
+    with torch.no_grad():
+        profile_step(lambda: eng.backend.step(params, toks, active),
+                     f"{arch} decode step, batch {max_batch}")
+        profile_step(lambda: model.prefill(params, b, max_len),
+                     f"{arch} prefill dispatch, 1 x {lengths[longest]} tokens"
+                     + (" + 1024 rows" if "frontend" in b else " + 1500 frames"))
+    add_launches(results, run["counts"], path)
+
+
+def phase_serve_dense_configs(results: dict) -> None:
+    """mistral-nemo-12b at full width and depth (40 layers, q_dim 4096 !=
+    d_model 5120), bf16: 16 requests of 16-600 tokens, max_new 32, over
+    bucketed dense lanes (max_batch 8, max_len 1024) and over the paged
+    pool (max_batch 16, 1024 16-token blocks); exact launches in both, the
+    paged run's agreement with the dense run printed, each kernel against
+    its plain version at the served shapes."""
+    from repro_torch.serving.engine import EngineConfig
+    arch = "mistral-nemo-12b"
+    model, params = family_model(arch)
+    cfg = model.cfg
+    if cfg.q_dim == cfg.d_model:
+        raise AssertionError(f"{arch}: q_dim {cfg.q_dim} equals d_model")
+    rng = np.random.default_rng(13)
+    lengths = np.linspace(16, 600, 16).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lengths]
+    inputs = [{} for _ in prompts]
+    per_prefill, per_step = family_launches(cfg)
+    runs = {}
+    for layout, max_batch, kw in (("dense", 8, {}),
+                                  ("paged", 16, dict(config=EngineConfig(kv_blocks=1024,
+                                                                         kv_block_size=16)))):
+        tag = f"[serve-dense-configs] {arch} {layout}"
+        run = family_serve(tag, model, params, prompts, inputs, 32, max_batch, 1024, **kw)
+        if run["eng"].backend.name != layout:
+            raise AssertionError(f"{tag}: served over {run['eng'].backend.name} lanes")
+        step = per_step if layout == "dense" else paged_launches(per_step)
+        report_run(tag, run, prompts, 32, max_batch, 1024, per_prefill, step)
+        runs[layout] = run
+        long = {"tokens": torch.as_tensor(prompts[-1][None], device=model.device)}
+        served_kernels(results, tag, f"{arch} {layout}", model, params, run["eng"], long, 1024,
+                       per_prefill, step)
+        add_launches(results, run["counts"], f"mistral {layout}")
+    same = sum(runs["paged"]["tokens"][r] == runs["dense"]["tokens"][r] for r in
+               runs["dense"]["tokens"])
+    log(f"[serve-dense-configs] {arch}: {same} of {len(prompts)} requests' tokens equal over "
+        f"paged and dense lanes (bf16: other kernels and batch shapes round apart)")
+    with torch.no_grad():
+        eng = runs["dense"]["eng"]
+        toks = np.zeros((8, 1), np.int32)
+        profile_step(lambda: eng.backend.step(params, toks, np.ones((8,), bool)),
+                     f"{arch} decode step, batch 8")
 
 
 # ---------------------------------------------------------------------------
@@ -2588,7 +3225,7 @@ def drive_fleet(fleet, prompts, samplings, arrivals, max_new: int, on_tick=None)
             fleet.submit(prompts[i], max_new=max_new, sampling=samplings[i])))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fleet.tick = tick
+    del fleet.tick    # the class's method again, and no cycle through the fleet
     if rids != list(range(len(prompts))):
         raise AssertionError(f"fleet admissions {rids}")
     return dict(tokens={rec.req.rid: list(rec.req.out_tokens) for rec in fleet.completed},
@@ -4521,6 +5158,28 @@ def phase_baseline(baselines: list) -> None:
 
 # ---------------------------------------------------------------------------
 
+class Laps:
+    """Logs each phase's wall time: ``lap(name)`` as a phase starts, ``lap()``
+    after the last.  Between phases it collects cycles and returns the
+    allocator's free blocks to the card, and logs the device memory still
+    allocated before and after: a phase that leaves a model alive shows
+    there, before a later phase that needs the whole card runs out."""
+
+    def __init__(self):
+        self.name, self.t0 = None, 0.0
+
+    def __call__(self, name: str | None = None) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            held = torch.cuda.memory_allocated()
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[phase] {self.name}: {now - self.t0:.1f} s; device memory allocated after "
+                f"it {held / 2**30:.3f} GiB, {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+                f"once cycles are collected")
+        self.name, self.t0 = name, now
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4545,60 +5204,100 @@ def main(argv=None) -> int:
         f"{torch.__version__} CUDA {torch.version.cuda}")
     results: dict = {}
     t_start = time.perf_counter()
+    lap = Laps()
     if "build" in phases:
+        lap("build")
         phase_build()
     if "kernels" in phases:
+        lap("kernels")
         phase_kernels(results)
     if "parity" in phases:
+        lap("parity")
         phase_parity()
     if "parity_bf16" in phases:
+        lap("parity_bf16")
         phase_parity_bf16()
     if "parity_train" in phases:
+        lap("parity_train")
         phase_parity_train()
     full = full_width_model() if any(p in phases for p in GRANITE_PHASES) else None
     if "serve" in phases:
+        lap("serve")
         phase_serve(results, *full)
     if "serve_paged" in phases:
+        lap("serve_paged")
         phase_serve_paged(results, *full)
     if "serve_stages" in phases:
+        lap("serve_stages")
         phase_serve_stages(results, *full)
         torch.cuda.empty_cache()
     if "agent" in phases:
+        lap("agent")
         phase_agent(results, *full)
     if "serve_spec" in phases:
+        lap("serve_spec")
         torch.cuda.empty_cache()
         phase_serve_spec(results, *full)
     if "serve_fleet" in phases:
+        lap("serve_fleet")
         torch.cuda.empty_cache()
         phase_serve_fleet(results, *full)
     if "fed" in phases:
+        lap("fed")
         torch.cuda.empty_cache()
         phase_fed(results, *full)
     del full
     torch.cuda.empty_cache()
     if "serve_rwkv" in phases:
+        lap("serve_rwkv")
         phase_serve_recurrent(results, "rwkv6-1.6b", "rwkv")
         torch.cuda.empty_cache()
     if "serve_hybrid" in phases:
+        lap("serve_hybrid")
         phase_serve_recurrent(results, "zamba2-7b", "hybrid")
         torch.cuda.empty_cache()
+    if "serve_moe" in phases:
+        lap("serve_moe")
+        phase_serve_moe(results)
+        torch.cuda.empty_cache()
+    if "serve_encdec" in phases:
+        lap("serve_encdec")
+        phase_serve_family(results, "whisper-small", "encdec", max_batch=8, max_len=448,
+                           lengths=np.linspace(4, 200, 16).astype(int))
+        torch.cuda.empty_cache()
+    if "serve_vlm" in phases:
+        lap("serve_vlm")
+        phase_serve_family(results, "internvl2-1b", "vlm", max_batch=8, max_len=1536,
+                           lengths=np.linspace(16, 400, 16).astype(int))
+        torch.cuda.empty_cache()
+    if "serve_dense_configs" in phases:
+        lap("serve_dense_configs")
+        phase_serve_dense_configs(results)
+        torch.cuda.empty_cache()
     if "train" in phases:
+        lap("train")
         phase_train(results)
         torch.cuda.empty_cache()
     if "train_hybrid" in phases:
+        lap("train_hybrid")
         phase_train_hybrid(results)
         torch.cuda.empty_cache()
     if "resnet" in phases:
+        lap("resnet")
         phase_resnet()
         torch.cuda.empty_cache()
     if "train_pp" in phases:
+        lap("train_pp")
         phase_train_pp(results)
     if "lr_probe" in phases:
+        lap("lr_probe")
         phase_lr_probe()
     if "baseline" in phases:
+        lap("baseline")
         if not args.baseline:
             raise SystemExit("the baseline phase needs --baseline DIR[,DIR...]")
         phase_baseline([Path(p) for p in args.baseline.split(",")])
+    lap()
     kernels = [dict(r, launches=r.get("launches")) for r in results.values()]
     if "kernels" in phases and len(kernels) != len(ops.launch_counts()):
         raise AssertionError(f"kernels line lists {[k['name'] for k in kernels]}")

@@ -1,8 +1,9 @@
-"""Architecture registry of the PyTorch port: the archs it serves or trains so far.
+"""Architecture registry of the PyTorch port: ``--arch <id>`` resolution and
+reduced smoke configs.
 
 The model configs are copies of ``repro.configs`` (the port imports nothing
-from the JAX package).  Families the port does not run yet stay out of
-the registry; ``reduced_config`` is the reference's, unchanged.
+from the JAX package), registered in the reference's order, so ``ARCH_IDS``
+is the reference's; ``reduced_config`` is the reference's, unchanged.
 """
 
 from __future__ import annotations
@@ -22,9 +23,23 @@ from repro_torch.configs.base import (  # noqa: F401
     shape_applicable,
 )
 
-from repro_torch.configs import granite_8b, rwkv6_1p6b, zamba2_7b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    command_r_35b,
+    granite_8b,
+    grok1_314b,
+    internvl2_1b,
+    llama4_scout_17b_a16e,
+    mistral_nemo_12b,
+    rwkv6_1p6b,
+    whisper_small,
+    yi_34b,
+    zamba2_7b,
+)
 
-_MODULES = (granite_8b, rwkv6_1p6b, zamba2_7b)
+_MODULES = (
+    whisper_small, zamba2_7b, mistral_nemo_12b, yi_34b, granite_8b,
+    command_r_35b, llama4_scout_17b_a16e, grok1_314b, rwkv6_1p6b, internvl2_1b,
+)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.arch_id: m.CONFIG for m in _MODULES}
 

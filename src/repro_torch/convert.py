@@ -2,12 +2,14 @@
 
 ``params_from_jax`` takes the reference's param tree with numpy leaves
 (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns the
-port's tree: the ``(L, ...)`` stacked block leaves are cut into one dict
-per layer, and bf16 leaves (ml_dtypes arrays) cross as a ``uint16`` bit
-view reinterpreted as ``torch.bfloat16``, so no value is rounded.
+port's tree: the ``(L, ...)`` stacked block leaves (``blocks``, and
+whisper's ``enc_blocks`` and ``dec_blocks``) are cut into one dict per
+layer, and bf16 leaves (ml_dtypes arrays) cross as a ``uint16`` bit view
+reinterpreted as ``torch.bfloat16``, so no value is rounded; every leaf
+keeps its dtype (an MoE router stays fp32 in a bf16 tree).
 ``cache_from_jax`` carries a decode cache the same way; the port keeps the
 reference's cache tree (layer-stacked leaves, ``pos``, zamba2's
-``ak``/``av``), so every leaf crosses as it is.  ``resnet_params_from_jax``
+``ak``/``av``, whisper's ``xk``/``xv``), so every leaf crosses as it is.  ``resnet_params_from_jax``
 carries ResNet-34's list of block dicts, whose layout the port keeps too.
 """
 
@@ -71,7 +73,7 @@ def unflatten(like: Any, values) -> Any:
 def params_from_jax(tree: dict, device="cuda") -> dict:
     out = {}
     for name, sub in tree.items():
-        if name == "blocks":
+        if name.endswith("blocks"):
             n = next(iter(leaves(sub))).shape[0]
             out[name] = [tree_map(lambda a, i=i: tensor_from_numpy(a[i]).to(device), sub)
                          for i in range(n)]

@@ -30,8 +30,10 @@ Schedules, executed from :mod:`repro_torch.core.schedules`' tables:
 
 Loss normalisation is the reference's: each microbatch's mean CE / M,
 summed over microbatches, then over columns / their count.  MoE archs are
-excluded, as the reference asserts; frontend batches raise, as
-``lm_loss`` does.
+excluded, as the reference asserts.  A frontend config (internvl2) takes
+``batch["frontend"]`` (B, P, D): stage 0 puts each microbatch's rows ahead
+of its tokens' embeddings, and the last stage's loss reads the positions
+from P - 1 on, as ``lm_loss`` does.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ from repro_torch.core.partition import PipelinePlan, plan_pipeline
 from repro_torch.launch.mesh import dp_degree
 from repro_torch.models import lm as LM
 from repro_torch.models.api import build_model
-from repro_torch.models.common import embed_tokens
 from repro_torch.optim import adamw
 
 
@@ -145,9 +146,10 @@ class _Column:
     of its microbatches' losses."""
 
     def __init__(self, cfg: ModelConfig, g: _Geom, rcfg: RunConfig, params: dict,
-                 tokens: torch.Tensor, seed: torch.Tensor, n_ticks: int, trace: PipelineTrace):
+                 tokens: torch.Tensor, frontend: Optional[torch.Tensor], seed: torch.Tensor,
+                 n_ticks: int, trace: PipelineTrace):
         self.cfg, self.g, self.rcfg, self.params = cfg, g, rcfg, params
-        self.tokens, self.seed, self.trace = tokens, seed, trace
+        self.tokens, self.frontend, self.seed, self.trace = tokens, frontend, seed, trace
         self.cdt = LM.dtype_of(rcfg.compute_dtype)
         self.fwd: Dict[Tuple[int, int], Tuple[int, torch.Tensor]] = {}   # (to stage, mb)
         self.bwd: Dict[Tuple[int, int], Tuple[int, torch.Tensor]] = {}
@@ -162,16 +164,21 @@ class _Column:
         return self.tokens[mb * self.g.b_mb:(mb + 1) * self.g.b_mb].long()
 
     def embed(self, mb: int) -> torch.Tensor:
-        return embed_tokens(self.params["embed"], self.tok(mb), self.cdt)
+        """Microbatch ``mb``'s input rows: its frontend rows, where the batch
+        has them, then its tokens' embeddings."""
+        batch = {"tokens": self.tok(mb)}
+        if self.frontend is not None:
+            batch["frontend"] = self.frontend[mb * self.g.b_mb:(mb + 1) * self.g.b_mb]
+        return LM.embed_inputs(self.params, batch, self.cdt)
 
     def chunk(self, s: int, x: torch.Tensor) -> torch.Tensor:
         """Stage ``s``'s layers (pad slots skipped) at their global indices."""
         blocks = [bp for bp in self.params["blocks"][s] if bp]
         return LM.layers_train(self.cfg, blocks, self.params.get("shared"), x, self.rcfg,
-                               start=s * self.g.lps)
+                               start=s * self.g.lps)[0]
 
     def head_loss(self, y: torch.Tensor, mb: int) -> torch.Tensor:
-        return LM.head_loss(self.cfg, self.params, y, self.tok(mb)) / self.g.M
+        return LM.head_loss(self.cfg, self.params, y, self.tok(mb), self.g.p_front) / self.g.M
 
     def send(self, box: dict, to: int, mb: int, t: int, x: torch.Tensor) -> None:
         box[(to, mb)] = (t, x.detach())
@@ -265,14 +272,16 @@ class _Schedule:
         self.trace = PipelineTrace()
 
     def __call__(self, params: dict, batch: Dict[str, torch.Tensor]):
-        if "frontend" in batch:
-            raise NotImplementedError("frontend batches ([audio]/[vlm] stubs) are not ported to "
-                                      "repro_torch yet (ROADMAP §1 item 10, other families)")
         g = self.g
         tokens = batch["tokens"]
+        frontend = batch.get("frontend")
         if tokens.shape[1] != g.t_tok or tokens.shape[0] != self.dp * g.R * g.b_col:
             raise ValueError(f"batch {tuple(tokens.shape)} is not {self.dp} x {g.R} columns "
                              f"of {g.b_col} sequences of {g.t_tok} tokens")
+        rows = (tokens.shape[0], g.p_front) if g.p_front else None
+        if (None if frontend is None else tuple(frontend.shape[:2])) != rows:
+            raise ValueError(f"{self.cfg.arch_id} takes {g.p_front} frontend rows a sequence, "
+                             f"got {None if frontend is None else tuple(frontend.shape)}")
         flat = list(leaves(params))
         for p in flat:
             p.requires_grad_(True)
@@ -286,6 +295,7 @@ class _Schedule:
             for r in range(g.R):
                 row0 = d * b_local + r * g.b_col
                 col = _Column(self.cfg, g, self.rcfg, params, tokens[row0:row0 + g.b_col],
+                              None if frontend is None else frontend[row0:row0 + g.b_col],
                               seed, len(self.table), self.trace)
                 col.run(self.table, self.hybrid)
                 loss += col.loss

@@ -1,12 +1,14 @@
 """Deterministic synthetic data (port of ``repro/data/synthetic.py``: the
-token stream and the image batches of the ResNet reproduction).
+token stream, its frontend variant and the image batches of the ResNet
+reproduction).
 
 A fixed random bigram transition table gives the stream learnable
 structure, so training loss measurably descends (a uniform stream would
 plateau at ln(V)).  numpy throughout, with the reference's generators and
 draw order: the same (seed, step, shard) gives the reference's batch, bit
-for bit.  Image batches are class-templated noise (paper §4.1).  The
-frontend pipeline waits for its families (ROADMAP §1 item 10).
+for bit.  :class:`FrontendPipeline` adds the stubbed frontends' rows
+(internvl2's patches under ``"frontend"``, whisper's frames under
+``"frames"``).  Image batches are class-templated noise (paper §4.1).
 """
 
 from __future__ import annotations
@@ -57,6 +59,27 @@ class TokenPipeline:
         while True:
             yield self.batch(step)
             step += 1
+
+
+class FrontendPipeline(TokenPipeline):
+    """Adds stub frame/patch embeddings (the [audio]/[vlm] frontends): float32
+    (B, ``frontend_seq``, ``d_model``) rows of 0.1 x a standard normal under
+    ``key``, from their own generator of (seed, step, shard)."""
+
+    def __init__(self, cfg: DataConfig, frontend_seq: int, d_model: int,
+                 key: str = "frontend", shard: int = 0, n_shards: int = 1):
+        super().__init__(cfg, shard, n_shards)
+        self.frontend_seq = frontend_seq
+        self.d_model = d_model
+        self.key = key
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        out = super().batch(step)
+        b = out["tokens"].shape[0]
+        rng = np.random.default_rng((self.cfg.seed * 7_000_003 + step) * 64 + self.shard + 17)
+        out[self.key] = (0.1 * rng.standard_normal(
+            (b, self.frontend_seq, self.d_model))).astype(np.float32)
+        return out
 
 
 class ImagePipeline:

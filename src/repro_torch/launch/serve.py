@@ -4,9 +4,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --requests 8 --max-new 16 [--tools] [--device cuda]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  Every ported family
-serves: ``--arch rwkv6-1.6b`` and ``--arch zamba2-7b`` on recurrent state
-lanes (the engine's default backend for them), granite-8b on dense lanes.
+Runs on ``cuda`` unless ``--device cpu`` is given.  Every arch id of the
+registry serves, at its reduced config: rwkv6-1.6b and zamba2-7b on
+recurrent state lanes (the engine's default backend for them), the others on
+dense lanes, whisper-small's requests each with frames from
+:class:`FrontendPipeline` (internvl2's, like the reference's, with tokens
+alone).
 ``--tools`` runs the paper's §4.3 agent scenario instead: three vector-DB
 searches offloaded to a worker pool while the model reasons and summarises.
 """
@@ -20,6 +23,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, RunConfig, get_config, reduced_config
+from repro_torch.data.synthetic import DataConfig, FrontendPipeline
 from repro_torch.models.api import build_model
 from repro_torch.offload.tools import ToolExecutor
 from repro_torch.offload.vectordb import VectorDB
@@ -67,10 +71,15 @@ def main(argv=None):
         return
 
     rng = np.random.default_rng(0)
+    extra = [{} for _ in range(args.requests)]
+    if cfg.family == "audio":                    # the encoder's input, one clip a request
+        frames = FrontendPipeline(DataConfig(cfg.vocab_size, 2, args.requests),
+                                  cfg.frontend_seq, cfg.d_model, key="frames").batch(0)["frames"]
+        extra = [{"frames": f} for f in frames]
     t0 = time.perf_counter()
     for i in range(args.requests):
         engine.submit(rng.integers(0, cfg.vocab_size, size=8 + i % 5),
-                      max_new=args.max_new)
+                      max_new=args.max_new, **extra[i])
     done = engine.run_until_drained()
     dt = time.perf_counter() - t0
     toks = sum(len(r.out_tokens) for r in done)

@@ -3,7 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
         --steps 200 [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The reference's flags
+Runs on ``cuda`` unless ``--device cpu`` is given.  Every arch id of the
+registry trains: internvl2 on batches with frontend rows and whisper on
+batches with frames (:class:`FrontendPipeline`), the rest on the token
+stream.  The reference's flags
 and defaults are kept, with one quirk: ``--reduced`` is ``store_true`` with
 ``default=True``, so the launcher always trains the reduced config (as the
 reference's does; ROADMAP §3).  ``--use-kernels`` is accepted and has no
@@ -28,7 +31,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, RunConfig, ShapeConfig, get_config, reduced_config
 from repro_torch.convert import leaves, unflatten
 from repro_torch.core.pipeline import make_pp_train_step
-from repro_torch.data.synthetic import DataConfig, TokenPipeline
+from repro_torch.data.synthetic import DataConfig, FrontendPipeline, TokenPipeline
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import Model, build_model
 from repro_torch.optim import adamw
@@ -52,7 +55,8 @@ def make_step_fn(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
 
 
 def token_batches(pipe: TokenPipeline, start: int, device):
-    """Batches of ``pipe`` from step ``start`` on, as int32 tensors on ``device``."""
+    """Batches of ``pipe`` from step ``start`` on, as tensors on ``device``
+    (int32 tokens; float32 frontend rows or frames)."""
     step = start
     while True:
         yield {k: torch.as_tensor(v).to(device) for k, v in pipe.batch(step).items()}
@@ -110,8 +114,14 @@ def main(argv=None):
               f"strategy={args.strategy}, device={model.device}")
         return p, adamw.init(p)
 
-    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                                    global_batch=args.batch, seed=rcfg.seed))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch,
+                      seed=rcfg.seed)
+    if cfg.frontend and cfg.family != "audio":
+        pipe = FrontendPipeline(dcfg, cfg.frontend_seq, cfg.d_model)
+    elif cfg.family == "audio":
+        pipe = FrontendPipeline(dcfg, cfg.frontend_seq, cfg.d_model, key="frames")
+    else:
+        pipe = TokenPipeline(dcfg)
     tr = Trainer(TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                                ckpt_dir=args.ckpt_dir, log_every=10),
                  step_fn, init_state,

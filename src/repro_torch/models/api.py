@@ -6,14 +6,18 @@
     logits, cache = model.decode_step(params, cache, tokens)
     loss, aux = model.loss(params, batch)
 
-Every ported family (dense, rwkv, hybrid) trains and serves.
+Every family of the reference trains and serves: decoder-only LMs (dense,
+MoE, pure SSM, rwkv, hybrid, vlm) through :mod:`repro_torch.models.lm`,
+the encoder-decoder (whisper) through :mod:`repro_torch.models.encdec`.
 ``model.decode_state`` (a :class:`DecodeState`) tells the serving backends
-what the decode state supports; ``batched_prefill`` is set only where
-right-padding is provably inert (full causal attention), and the block-pool
-pair ``pool_init`` / ``pool_step`` only where the decode state is a
-position-addressed K/V cache (full attention).  rwkv and zamba2 carry a
-recurrent state: each request is prefilled alone at its exact length, and
-the ``RecurrentBackend`` serves them.
+what the decode state supports, by the reference's gates: ``batched_prefill``
+only where right-padding is provably inert (``ragged_ok``: dense full causal
+attention, no frontend), the block-pool pair ``pool_init`` / ``pool_step``
+only where the decode state is a position-addressed K/V cache (``pool_ok``:
+dense or MoE full attention).  rwkv, the pure SSM and zamba2 carry a
+recurrent state (the ``RecurrentBackend`` serves them); everything else
+the engine cannot batch is prefilled one request at a time at its exact
+length.
 
 The dense family also serves layer-split: :func:`stage_model` is a Model
 over one layer range, and :func:`split_stage_params` cuts the params to
@@ -30,15 +34,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.convert import leaves
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
-from repro_torch.models.blocks import is_recurrent, require_ported
+from repro_torch.models.blocks import is_recurrent
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeState:
-    """``kind`` is the state taxonomy ("attention" for the dense family,
-    "recurrent" for rwkv and zamba2: a constant-size state per lane,
-    cheap to snapshot and restore);
+    """``kind`` is the state taxonomy ("attention" for K/V caches,
+    "recurrent" for rwkv, the pure SSM and zamba2: a constant-size state
+    per lane, cheap to snapshot and restore; "encdec" for whisper's self
+    and cross caches, dense lanes only);
     ``batched_prefill(params, batch, lengths, max_len)`` is the
     right-padded bucketed prefill, or None where padding would leak.
 
@@ -54,8 +60,8 @@ class DecodeState:
     the speculative verify entry points.  Each is a loop of the very same
     single-step call, so its outputs are bitwise those of W separate steps
     (:func:`repro_torch.models.lm.lm_decode_window`).  ``window_step`` is
-    set for every family: the port's ``lm_decode_step`` serves rwkv and
-    zamba2 too, so their window is the same loop."""
+    set for every family: the port's ``lm_decode_step`` serves the
+    recurrent families too, so their window is the same loop."""
 
     kind: str
     batched_prefill: Optional[
@@ -90,33 +96,48 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
-    """The model's entry points on ``device`` (default ``cuda``).
-
-    Dense decoder LMs, rwkv6 and zamba2 train and serve; other families
-    raise naming their ROADMAP item.  Params and compute share one dtype
-    here."""
-    require_ported(cfg)
+    """The model's entry points on ``device`` (default ``cuda``).  Params and
+    compute share one dtype here."""
     if rcfg.param_dtype != rcfg.compute_dtype:
         raise ValueError(f"repro_torch runs with param_dtype == compute_dtype, got "
                          f"{rcfg.param_dtype!r} and {rcfg.compute_dtype!r}")
     device = torch.device(device)
     dt = LM.dtype_of(rcfg.param_dtype)
 
-    def init(seed: int) -> dict:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return LM.init_lm(cfg, gen, dt)
+    def gen(seed: int) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(seed)
 
-    # right-padded batched prefill and the block pool are both exact only
-    # for full causal attention (the reference's ragged_ok / pool_ok gates,
-    # restricted to the families the port builds): recurrent state folds
-    # pad tokens in and is not position-addressed; chunked_local's ring
-    # buffer is dense-span specific
+    if cfg.family == "audio" and cfg.n_enc_layers:
+        return Model(
+            cfg=cfg, rcfg=rcfg, device=device,
+            init=lambda seed: ED.init_encdec(cfg, gen(seed), dt),
+            loss=lambda p, b: ED.encdec_loss(cfg, p, b, rcfg),
+            prefill=lambda p, b, ml: ED.encdec_prefill(cfg, p, b, rcfg, ml),
+            decode_step=lambda p, c, t: ED.encdec_decode_step(cfg, p, c, t, rcfg),
+            init_cache=lambda bsz, ml: ED.init_encdec_cache(cfg, bsz, ml, dt, device),
+            decode_state=DecodeState(kind="encdec",
+                                     window_step=lambda p, c, t: ED.encdec_decode_window(
+                                         cfg, p, c, t, rcfg)))
+
+    # right-padded batched prefill is exact only when pad tokens cannot leak
+    # into real lanes: full causal attention, no recurrent state, no
+    # frontend, and no MoE (pad tokens compete for, and resize, expert
+    # capacity).  A block pool is exact wherever the per-layer decode state
+    # is a full-attention K/V cache addressed by position: dense and MoE
+    # (routing is per token at decode, so paging cannot perturb it).
+    # chunked_local's ring is dense-span specific.  The reference's
+    # ragged_ok / pool_ok, exactly.
     recurrent = is_recurrent(cfg)
+    ragged_ok = (cfg.family == "dense" and not cfg.rwkv and cfg.attention == "full"
+                 and not cfg.frontend and not cfg.n_enc_layers)
+    pool_ok = (cfg.family in ("dense", "moe") and not cfg.rwkv and cfg.attention == "full"
+               and not cfg.n_enc_layers)
     batched = pool_init = pool_step = pool_window = None
-    if cfg.attention == "full" and not recurrent:
+    if ragged_ok:
         def batched(p, b, ln, ml):
             return LM.lm_prefill_padded(cfg, p, b, ln, rcfg, ml)
 
+    if pool_ok:
         def pool_init(nl, nb, bs):
             return LM.init_pool_cache(cfg, nl, nb, bs, dt, device)
 
@@ -128,7 +149,7 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
 
     return Model(
         cfg=cfg, rcfg=rcfg, device=device,
-        init=init,
+        init=lambda seed: LM.init_lm(cfg, gen(seed), dt),
         loss=lambda p, b: LM.lm_loss(cfg, p, b, rcfg),
         prefill=lambda p, b, ml: LM.lm_prefill(cfg, p, b, rcfg, ml),
         decode_step=lambda p, c, t: LM.lm_decode_step(cfg, p, c, t, rcfg),

@@ -1,14 +1,21 @@
-"""GQA self-attention with a dense or paged KV cache (port of
+"""GQA self- and cross-attention with a dense or paged KV cache (port of
 ``repro/models/attention.py``).
 
-Prefill attention always goes through ``ops.flash_attention``, dense decode
-attention through ``ops.decode_attention`` and paged decode attention
+Prefill and cross attention always go through ``ops.flash_attention``, dense
+decode attention through ``ops.decode_attention`` and paged decode attention
 through ``ops.paged_decode_attention``: on CUDA tensors they launch the
 Hopper kernels, on CPU tensors they run the kernels' plain versions.  The
 reference's ``RunConfig.use_kernels`` switch has no effect here (the device
 decides), so nothing on the card can reach a plain version.  Layouts: q
 ``(B,T,H,D)``, k/v ``(B,T,G,D)``, dense caches ``(B,span,G,D)`` and block
-pools ``(NB,bs,G,D)`` per layer.
+pools ``(NB,bs,G,D)`` per layer.  A ``rope`` of None skips the rotation
+(whisper's decoder, the reference's ``use_rope=False``).
+
+chunked_local caches are rings of ``span`` slots, position p at slot
+``p % span``: decode writes there, and prefill puts a prompt's tail at the
+same slots, so decode always attends to the last ``span`` positions.  (The
+reference keeps the tail at slots 0..span-1, which its decode's ring
+addressing matches only when ``t % span == 0``; ROADMAP §3.)
 """
 
 from __future__ import annotations
@@ -60,17 +67,32 @@ def _self_attend(q, k, v, cfg: ModelConfig, causal: bool):
                                chunk=local_chunk)
 
 
+def _rotate(q: torch.Tensor, k: torch.Tensor, rope: Optional[Rope]):
+    return (q, k) if rope is None else (rotate(q, rope), rotate(k, rope))
+
+
 def attention(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-              positions: Optional[torch.Tensor] = None,
+              positions: Optional[torch.Tensor] = None, use_rope: bool = True,
               causal: bool = True) -> torch.Tensor:
     """Self-attention over a full sequence (no cache)."""
     b, t, _ = x.shape
-    if positions is None:
-        positions = torch.arange(t, device=x.device)[None, :]
     q, k, v = _proj_qkv(params, x, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(t, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = _self_attend(q, k, v, cfg, causal)
+    return out.reshape(b, t, cfg.q_dim) @ params["wo"]
+
+
+def cross_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    enc_out: torch.Tensor) -> torch.Tensor:
+    """x (B,T,D) attends, unmasked and without RoPE, to the encoder's rows
+    enc_out (B,Te,D): the flash kernel at Tk = Te."""
+    b, t, _ = x.shape
+    q, k, v = _proj_qkv(params, x, enc_out, cfg)
+    out = ops.flash_attention(q, k, v, causal=False, scale=cfg.head_dim ** -0.5, chunk=0)
     return out.reshape(b, t, cfg.q_dim) @ params["wo"]
 
 
@@ -113,14 +135,15 @@ def decode_attn(params: dict, cfg: ModelConfig, x: torch.Tensor, ck: torch.Tenso
     """One-token decode for one layer.
 
     x: (B,1,D); ck/cv: (B,span,KVH,Dh); ``rope`` the tables of the lanes'
-    positions, ``rows`` / ``valid`` from :func:`decode_slots`.
+    positions (None: no rotation), ``rows`` / ``valid`` from
+    :func:`decode_slots`.
     Writes this token's K/V into ``ck``/``cv`` IN PLACE (where the
     reference returns updated caches), then attends over every written
     slot.  Returns the attention output (B,1,D).
     """
     b = x.shape[0]
     q, k, v = _proj_qkv(params, x, x, cfg)
-    q, k = rotate(q, rope), rotate(k, rope)
+    q, k = _rotate(q, k, rope)
     span = ck.shape[1]
     ck.view(b * span, *ck.shape[2:]).index_copy_(0, rows, k[:, 0].to(ck.dtype))
     cv.view(b * span, *cv.shape[2:]).index_copy_(0, rows, v[:, 0].to(cv.dtype))
@@ -173,19 +196,25 @@ def decode_attn_paged(params: dict, cfg: ModelConfig, x: torch.Tensor, kp: torch
     return out.reshape(b, 1, cfg.q_dim) @ params["wo"]
 
 
-def prefill_attn(params: dict, cfg: ModelConfig, x: torch.Tensor, rope: Rope,
+def prefill_attn(params: dict, cfg: ModelConfig, x: torch.Tensor, rope: Optional[Rope],
                  span: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full self-attention AND the K/V cache content for one layer; ``rope``
-    holds the (cos, sin) tables of positions 0..T-1.
+    """Full causal self-attention AND the K/V cache content for one layer;
+    ``rope`` holds the (cos, sin) tables of positions 0..T-1 (None: no
+    rotation).
 
-    Returns (out (B,T,D), ck (B,span,KVH,Dh), cv)."""
+    Returns (out (B,T,D), ck (B,span,KVH,Dh), cv).  A prompt longer than a
+    chunked_local ring keeps its last ``span`` positions, each at its ring
+    slot ``p % span``."""
     b, t, _ = x.shape
     q, k, v = _proj_qkv(params, x, x, cfg)
-    q, k = rotate(q, rope), rotate(k, rope)
+    q, k = _rotate(q, k, rope)
     out = _self_attend(q, k, v, cfg, True)
     out = out.reshape(b, t, cfg.q_dim) @ params["wo"]
     if t >= span:                                     # chunked_local: keep tail
         ck, cv = k[:, t - span:], v[:, t - span:]
+        if cfg.attention == "chunked_local" and t % span:
+            # tail index j is position t - span + j, whose slot is (t + j) % span
+            ck, cv = torch.roll(ck, t % span, dims=1), torch.roll(cv, t % span, dims=1)
     else:
         pad = torch.zeros((b, span - t) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
         ck, cv = torch.cat([k, pad], 1), torch.cat([v, pad], 1)

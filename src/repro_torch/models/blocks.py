@@ -1,9 +1,10 @@
-"""Per-layer decoder blocks (port of ``repro/models/blocks.py``: dense, rwkv
-and the hybrid family's Mamba2 layers and shared block).
+"""Per-layer decoder blocks (port of ``repro/models/blocks.py``: dense and
+MoE attention layers, rwkv, and the Mamba2 layers of the pure-SSM and
+hybrid families with zamba2's shared block).
 
     init_block(gen, cfg, dtype)                      -> one layer's params
     init_shared(gen, cfg, dtype)                     -> zamba2's shared block, or None
-    block_train(cfg, bp, x)                               -> x  (full sequence, no cache)
+    block_train(cfg, bp, x)                               -> (x, aux)  (full sequence, no cache)
     shared_attn_train(cfg, shared, x, idx)                -> x  (fires every attn_every)
     block_prefill(cfg, bp, x, rope, span)                 -> (x, cache layer)
     block_decode(cfg, bp, x, ck, cv, rope, rows, valid)   -> x  (ck/cv in place)
@@ -15,18 +16,20 @@ and the hybrid family's Mamba2 layers and shared block).
 
 ``rope`` / ``rows`` / ``valid`` / ``p_eff`` depend only on positions, so the
 assembly computes them once per forward for all layers.  A cache layer is
-``{"k", "v"}`` for the dense family, ``{"S", "last", "last_c"}`` for rwkv
-and ``{"conv", "ssm"}`` for the hybrid family's Mamba2 layers; zamba2's
-shared block keeps its K/V in the ``ak``/``av`` slots, one per firing
-(slot ``idx // attn_every``).
+``{"k", "v"}`` for the attention families, ``{"S", "last", "last_c"}`` for
+rwkv and ``{"conv", "ssm"}`` for Mamba2 layers; zamba2's shared block keeps
+its K/V in the ``ak``/``av`` slots, one per firing (slot ``idx //
+attn_every``).
+
+An MoE layer's feed-forward is :func:`repro_torch.models.moe.apply_moe`,
+called through the module (so a caller may wrap it): over a prompt with
+the reference's 4096-token groups, at a decode step with the lanes as one
+group.  Its balance loss is ``block_train``'s ``aux`` (0 elsewhere).
 
 The layer-stacked cache is allocated whole by
 :func:`repro_torch.models.lm.init_cache`, so the reference's one-layer
-``init_cache_layer`` has no counterpart here.  The reference's per-layer
-MoE auxiliary loss is 0 for the families here, so :func:`block_train`
-returns x alone.  Other families (MoE, pure SSM, enc-dec, frontends) are
-not ported yet (ROADMAP §1 item 10); :func:`require_ported` names that
-item.
+``init_cache_layer`` has no counterpart here.  The encoder-decoder family
+has blocks of its own (:mod:`repro_torch.models.encdec`).
 """
 
 from __future__ import annotations
@@ -37,39 +40,36 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_mlp, init_mlp, init_rmsnorm, rmsnorm
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    """Dense decoder LMs, rwkv6 and the hybrid family are ported; other
-    families raise."""
-    if cfg.rwkv:
-        return
-    if (cfg.family not in ("dense", "hybrid") or cfg.n_experts or cfg.frontend
-            or cfg.n_enc_layers):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} is not ported to repro_torch yet "
-            f"(ROADMAP §1 item 10, other families); dense decoder LMs, rwkv6 and the hybrid "
-            f"family (zamba2) are")
+def is_mamba(cfg: ModelConfig) -> bool:
+    """Mamba2 layers: the pure-SSM family and zamba2's backbone."""
+    return not cfg.rwkv and cfg.family in ("ssm", "hybrid")
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
-    """rwkv and zamba2 carry a recurrent state when they serve."""
-    return cfg.rwkv or cfg.family == "hybrid"
+    """rwkv, the pure-SSM family and zamba2 carry a recurrent state when
+    they serve."""
+    return cfg.rwkv or is_mamba(cfg)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> dict:
-    require_ported(cfg)
     d = cfg.d_model
     ln = lambda: init_rmsnorm(d, dtype, gen.device)
     if cfg.rwkv:
         return {"ln1": ln(), "ln2": ln(), "rwkv": rwkv_mod.init_rwkv6(gen, cfg, dtype)}
-    if cfg.family == "hybrid":
+    if is_mamba(cfg):
         return {"ln": ln(), "mamba": ssm_mod.init_mamba2(gen, cfg, dtype)}
-    return {"ln1": ln(), "ln2": ln(), "attn": attn.init_attention(gen, cfg, dtype),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.glu, dtype)}
+    p = {"ln1": ln(), "ln2": ln(), "attn": attn.init_attention(gen, cfg, dtype)}
+    if cfg.n_experts:
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.glu, dtype)
+    return p
 
 
 def init_shared(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Optional[dict]:
@@ -89,15 +89,28 @@ def n_attn_applications(cfg: ModelConfig) -> int:
     return 0
 
 
-def block_train(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
-    """One layer over a full sequence from an empty state (training)."""
+def _ffn(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+         group_size: int = 4096) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The residual ``x`` plus the layer's MLP or MoE of ``rmsnorm(ln2, x)``,
+    and the MoE's balance loss (None for an MLP)."""
+    h = rmsnorm(bp["ln2"], x)
+    if cfg.n_experts:
+        y, aux = moe_mod.apply_moe(bp["moe"], cfg, h, group_size=group_size)
+        return x + y, aux
+    return x + apply_mlp(bp["mlp"], h, cfg.act), None
+
+
+def block_train(cfg: ModelConfig, bp: dict,
+                x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer over a full sequence from an empty state (training):
+    (x, the MoE balance loss or None where the layer has none)."""
     if cfg.rwkv:
         x = x + rwkv_mod.apply_rwkv6_tmix(bp["rwkv"], cfg, rmsnorm(bp["ln1"], x))[0]
-        return x + rwkv_mod.apply_rwkv6_cmix(bp["rwkv"], cfg, rmsnorm(bp["ln2"], x))[0]
-    if cfg.family == "hybrid":
-        return x + ssm_mod.apply_mamba2(bp["mamba"], cfg, rmsnorm(bp["ln"], x))[0]
+        return x + rwkv_mod.apply_rwkv6_cmix(bp["rwkv"], cfg, rmsnorm(bp["ln2"], x))[0], None
+    if is_mamba(cfg):
+        return x + ssm_mod.apply_mamba2(bp["mamba"], cfg, rmsnorm(bp["ln"], x))[0], None
     x = x + attn.attention(bp["attn"], cfg, rmsnorm(bp["ln1"], x), causal=True)
-    return x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
+    return _ffn(cfg, bp, x)
 
 
 def shared_attn_train(cfg: ModelConfig, shared: dict, x: torch.Tensor,
@@ -122,12 +135,11 @@ def block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor, rope: Optional[at
         x = x + h
         h, last_c = rwkv_mod.apply_rwkv6_cmix(bp["rwkv"], cfg, rmsnorm(bp["ln2"], x))
         return x + h, {"S": st["S"], "last": st["last"], "last_c": last_c}
-    if cfg.family == "hybrid":
+    if is_mamba(cfg):
         h, st = ssm_mod.apply_mamba2(bp["mamba"], cfg, rmsnorm(bp["ln"], x))
         return x + h, st
     h, ck, cv = attn.prefill_attn(bp["attn"], cfg, rmsnorm(bp["ln1"], x), rope, span)
-    x = x + h
-    x = x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
+    x, _ = _ffn(cfg, bp, x + h)
     return x, {"k": ck.to(dtype), "v": cv.to(dtype)}
 
 
@@ -137,7 +149,7 @@ def block_decode(cfg: ModelConfig, bp: dict, x: torch.Tensor, ck: torch.Tensor,
     """One-token step of one layer; writes this token's K/V into ck/cv in place."""
     x = x + attn.decode_attn(bp["attn"], cfg, rmsnorm(bp["ln1"], x), ck, cv, rope, rows,
                              valid)
-    return x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
+    return _ffn(cfg, bp, x, group_size=max(1, x.shape[0]))[0]
 
 
 def block_decode_paged(cfg: ModelConfig, bp: dict, x: torch.Tensor, kp: torch.Tensor,
@@ -147,7 +159,7 @@ def block_decode_paged(cfg: ModelConfig, bp: dict, x: torch.Tensor, kp: torch.Te
     token's K/V into kp/vp in place."""
     x = x + attn.decode_attn_paged(bp["attn"], cfg, rmsnorm(bp["ln1"], x), kp, vp, rope, rows,
                                    block_tables, p_eff)
-    return x + apply_mlp(bp["mlp"], rmsnorm(bp["ln2"], x), cfg.act)
+    return _ffn(cfg, bp, x, group_size=max(1, x.shape[0]))[0]
 
 
 def block_decode_recurrent(cfg: ModelConfig, bp: dict, x: torch.Tensor,

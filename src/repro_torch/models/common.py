@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -72,6 +73,16 @@ def rotate(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Te
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., T, H, Dh); positions: (..., T) int."""
     return rotate(x, rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """(n, d) fp32 [sin | cos] position table (whisper), the reference's numpy
+    formula, so both packages add the same table."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return out.astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

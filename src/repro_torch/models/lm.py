@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, dense, rwkv and hybrid families (port of
-``repro/models/lm.py``).
+"""Decoder-only LM assembly: dense, MoE, pure-SSM, rwkv, hybrid and the vlm's
+LM backbone (port of ``repro/models/lm.py``).
 
 Params::
 
@@ -21,7 +21,11 @@ recurrent state of rwkv and zamba2::
 
 Leaves not marked fp32 are in the compute dtype.  Every family trains
 (:func:`lm_loss`) and serves (prefill, decode, caches); the batched padded
-prefill and the block pool are the dense family's.
+prefill and the block pool are wired by ``models/api.py``'s gates.
+
+A frontend batch (internvl2's stubbed vision rows) carries ``"frontend"``
+(B, P, D): the first P positions are those rows, the rest the tokens'
+embeddings, so the cache's positions count the rows too.
 
 Decode writes each step's K/V, or each layer's new recurrent state, into
 the cache IN PLACE (the reference donates the buffers to jit instead) and
@@ -35,7 +39,7 @@ one-stage case, so a cut changes nothing but where the layer loop pauses.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -47,6 +51,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import cache_span, decode_slots, init_kv_cache, paged_slots
 from repro_torch.models.common import (chunked_xent, embed_tokens, init_embed, init_head,
                                        init_rmsnorm, rmsnorm, rope_tables)
+
+
+AUX_COEF = 0.01
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -78,57 +85,76 @@ def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor
 
 
 def _layer_train(cfg: ModelConfig, bp: dict, shared, x: torch.Tensor,
-                 idx: int) -> torch.Tensor:
-    """Layer ``idx``, then zamba2's shared block where it fires after it."""
-    x = B.block_train(cfg, bp, x)
+                 idx: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Layer ``idx``, then zamba2's shared block where it fires after it:
+    (x, the layer's MoE balance loss or None)."""
+    x, aux = B.block_train(cfg, bp, x)
     if shared is not None:
         x = B.shared_attn_train(cfg, shared, x, idx)
-    return x
+    return x, aux
 
 
 def layers_train(cfg: ModelConfig, blocks: list, shared, x: torch.Tensor, rcfg: RunConfig,
-                 start: int = 0) -> torch.Tensor:
+                 start: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``blocks`` (layers ``start``, ``start + 1``, ...) over the full
-    sequence; zamba2's shared block fires by the global layer index.  With
-    ``rcfg.remat`` (and grad on) each layer -- with the shared block that
-    fires after it -- is checkpointed, its activations recomputed in the
-    backward (the reference's ``jax.checkpoint`` of the scan body)."""
+    sequence; zamba2's shared block fires by the global layer index.
+    Returns (x, the MoE balance losses summed over the layers, or None where
+    no layer has one).  With ``rcfg.remat`` (and grad on) each layer -- with
+    the shared block that fires after it -- is checkpointed, its activations
+    recomputed in the backward (the reference's ``jax.checkpoint`` of the
+    scan body)."""
     remat = rcfg.remat and torch.is_grad_enabled()
+    total = None
     for idx, bp in enumerate(blocks, start):
         if remat:
-            x = checkpoint(_layer_train, cfg, bp, shared, x, idx, use_reentrant=False)
+            x, aux = checkpoint(_layer_train, cfg, bp, shared, x, idx, use_reentrant=False)
         else:
-            x = _layer_train(cfg, bp, shared, x, idx)
-    return x
+            x, aux = _layer_train(cfg, bp, shared, x, idx)
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return x, total
 
 
-def head_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
-              tokens: torch.Tensor) -> torch.Tensor:
+def head_loss(cfg: ModelConfig, params: dict, x: torch.Tensor, tokens: torch.Tensor,
+              p_front: int = 0) -> torch.Tensor:
     """Final norm, head and the mean next-token CE of hidden states ``x``
-    (B, T, D) against ``tokens`` (B, T)."""
-    h = rmsnorm(params["final_ln"], x)[:, :-1]
+    (B, P + T, D) against ``tokens`` (B, T): with ``p_front`` frontend rows
+    ahead of the tokens, position P - 1 predicts the first token."""
+    h = rmsnorm(params["final_ln"], x)
+    if p_front:
+        h, tokens = h[:, p_front - 1:p_front + tokens.shape[1] - 1], tokens
+    else:
+        h, tokens = h[:, :-1], tokens[:, 1:]
     if cfg.tie_embeddings:        # head_logits' scaling: on h, not on a copy of the table
         h, w = h * cfg.d_model ** -0.5, params["embed"]["tok"].t()
     else:
         w = params["head"]["w"]
-    return chunked_xent(h, w, tokens[:, 1:], cfg.vocab_size)
+    return chunked_xent(h, w, tokens, cfg.vocab_size)
+
+
+def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
+                 cdt: torch.dtype) -> torch.Tensor:
+    """The residual stream's input (B, P + T, D): the frontend rows, where
+    the batch has them, then the tokens' embeddings."""
+    x = embed_tokens(params["embed"], batch["tokens"].long(), cdt)
+    if "frontend" in batch:
+        x = torch.cat([batch["frontend"].to(cdt), x], dim=1)
+    return x
 
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             rcfg: RunConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE of ``batch["tokens"]`` (B, T): (loss, {"ce", "aux"}).
-    ``aux`` (the reference's MoE balance loss, added to the CE with weight
-    0.01) is 0 for the ported families, so the loss is the CE."""
-    if "frontend" in batch:
-        raise NotImplementedError("frontend batches ([audio]/[vlm] stubs) are not ported to "
-                                  "repro_torch yet (ROADMAP §1 item 10, other families)")
+    """Next-token CE of ``batch["tokens"]`` (B, T), after ``batch["frontend"]``
+    where given: (loss, {"ce", "aux"}), ``loss = ce + AUX_COEF * aux`` with
+    ``aux`` the MoE balance losses summed over the layers (0 without MoE)."""
     cdt = dtype_of(rcfg.compute_dtype)
     tokens = batch["tokens"].long()
-    x = embed_tokens(params["embed"], tokens, cdt)
-    x = layers_train(cfg, params["blocks"], params.get("shared"), x, rcfg)
-    ce = head_loss(cfg, params, x, tokens)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-    return ce, {"ce": ce, "aux": aux}
+    x = embed_inputs(params, batch, cdt)
+    x, aux = layers_train(cfg, params["blocks"], params.get("shared"), x, rcfg)
+    ce = head_loss(cfg, params, x, tokens, x.shape[1] - tokens.shape[1])
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
 
 
 def _prefill_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -159,15 +185,15 @@ def lm_stage_prefill(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tens
 
     ``cfg.n_layers`` is the STAGE's layer count and ``params["blocks"]``
     holds only those layers (:func:`repro_torch.models.api.split_stage_params`).
-    The first stage embeds ``batch["tokens"]``; later stages continue the
+    The first stage embeds ``batch["tokens"]`` (after ``batch["frontend"]``'s
+    rows where given); later stages continue the
     residual stream from ``batch["hidden"]``, the boundary activation the
     previous stage shipped.  Non-last stages return the FULL hidden
     sequence (B, T, D) so the next stage can prefill from it; the last
     stage returns last-token logits.  A cut only pauses the full model's
     layer loop, so the stages composed are bit-identical to it."""
     cdt = dtype_of(rcfg.compute_dtype)
-    x = (embed_tokens(params["embed"], batch["tokens"], cdt) if first
-         else batch["hidden"].to(cdt))
+    x = embed_inputs(params, batch, cdt) if first else batch["hidden"].to(cdt)
     x, cache = _prefill_layers(cfg, params, x, max_len)
     cache["pos"].fill_(x.shape[1])
     if last:
@@ -191,7 +217,7 @@ def lm_prefill_padded(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Ten
     are gathered at each lane's last real position, and the per-lane cache
     ``pos`` masks the pad garbage out of decode until the step that
     overwrites it."""
-    x = embed_tokens(params["embed"], batch["tokens"], dtype_of(rcfg.compute_dtype))
+    x = embed_inputs(params, batch, dtype_of(rcfg.compute_dtype))
     x, cache = _prefill_layers(cfg, params, x, max_len)
     x = rmsnorm(params["final_ln"], x)
     h = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1]
@@ -315,10 +341,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
     """The zeroed decode cache of ``batch`` lanes (the module docstring's
     layouts): K/V lanes, or the recurrent state of every layer and zamba2's
     shared-block slots."""
-    B.require_ported(cfg)
     if cfg.rwkv:
         layers = rwkv_mod.init_rwkv6_state(cfg, batch, cfg.n_layers, dtype, device)
-    elif cfg.family == "hybrid":
+    elif B.is_mamba(cfg):
         layers = ssm_mod.init_mamba2_state(cfg, batch, cfg.n_layers, dtype, device)
     else:
         layers = init_kv_cache(cfg, batch, max_len, dtype, device)
@@ -336,7 +361,6 @@ def init_pool_cache(cfg: ModelConfig, n_lanes: int, n_blocks: int, block_size: i
     """Pooled KV cache: ``n_blocks`` usable blocks + 1 sink (block id 0),
     sized by live tokens rather than lanes x worst-case length; per-lane
     block tables (backend-owned) map logical positions to pool slots."""
-    B.require_ported(cfg)
     shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)},

@@ -38,7 +38,7 @@ and speaks only its verbs (``slot`` is a lane index):
   content actually written so future prompts can prefix-match it.
 
 Implementations: :class:`DenseBackend` (one ``max_len``-wide lane per
-slot), :class:`PagedBackend` (block-pooled KV with refcounted
+slot; whisper's lanes also hold the encoder rows' cross K/V), :class:`PagedBackend` (block-pooled KV with refcounted
 copy-on-write prefix caching over :class:`BlockManager`) and
 :class:`RecurrentBackend` (rwkv and zamba2: constant-footprint state lanes,
 admission charged in state units, snapshot/restore preemption).
@@ -168,7 +168,10 @@ class DenseBackend(CacheBackend):
 
     def __init__(self, model: Model, n_lanes: int, max_len: int):
         super().__init__(model, n_lanes, max_len)
-        self._span = cache_span(model.cfg, max_len)
+        # an encoder-decoder's self-attention lanes are max_len wide whatever
+        # the config's attention (its cross rows are the encoder's)
+        self._span = (cache_span(model.cfg, max_len) if model.decode_state.kind != "encdec"
+                      else max_len)
         self.cache = model.init_cache(n_lanes, max_len)
 
     def token_footprint(self, n_ctx: int, max_new: int,

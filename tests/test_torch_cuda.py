@@ -104,6 +104,58 @@ def test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,g,d,causal,chunk", [
+    (1, 1500, 12, 12, 64, False, 0),            # whisper-small's encoder
+    (2, (37, 1500), 12, 12, 64, False, 0),      # its cross-attention: Tk = 1500 frames
+    (1, 1088, 14, 2, 64, True, 0),              # internvl2-1b: 1024 rows + 64 tokens, H/G 7
+    (1, 300, 40, 8, 128, True, 0),              # llama4-scout: H/G 5
+    (1, 8300, 40, 8, 128, True, 8192),          # its chunk edge inside one prompt
+    (1, 8193, 40, 8, 128, True, 8192),          # one token past the first chunk
+    (1, 8192, 40, 8, 128, True, 8192),          # exactly one chunk
+    (1, 600, 48, 8, 128, True, 0),              # grok-1: H/G 6
+    (2, 130, 48, 8, 128, True, 0),
+])
+def test_flash_kernel_at_the_families_shapes(cuda_device, dtype, b, t, h, g, d, causal, chunk):
+    test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,g,d,span", [
+    (8, 40, 8, 128, 8192),      # llama4-scout's ring lanes, H/G 5
+    (8, 12, 12, 64, 448),       # whisper-small's self-attention
+    (8, 12, 12, 64, 1500),      # and its cross-attention span
+    (8, 14, 2, 64, 1536),       # internvl2-1b, H/G 7
+    (16, 48, 8, 128, 1024),     # grok-1, H/G 6
+])
+def test_decode_kernel_at_the_families_shapes(cuda_device, dtype, b, h, g, d, span):
+    test_decode_kernel(cuda_device, dtype, b, h, g, d, span)
+    gen = torch.Generator(device=cuda_device).manual_seed(span + 3)
+    q, ck, cv = _rand(gen, dtype, b, 1, h, d), _rand(gen, dtype, b, span, g, d), \
+        _rand(gen, dtype, b, span, g, d)
+    every = torch.ones((b, span), dtype=torch.bool, device=cuda_device)   # cross rows
+    _assert_close(kdec.decode_attention_cuda(q, ck, cv, every, d ** -0.5),
+                  kdec.decode_attention_plain(q, ck, cv, every, d ** -0.5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,g", [(48, 8), (32, 8)])      # grok-1, mistral-nemo-12b
+def test_paged_kernel_at_the_families_shapes(cuda_device, dtype, h, g):
+    test_paged_kernel(cuda_device, dtype, 16, h, g, 128, 16, 64,
+                      [16 + 63 * i for i in range(16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1500, 768), (1088, 896), (9000, 5120), (600, 6144),
+                                    (16, 6144), (8, 768)])
+def test_rmsnorm_kernel_at_the_families_widths(cuda_device, dtype, rows, d):
+    test_rmsnorm_kernel(cuda_device, dtype, rows, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,g,d,span", [(2, 4, 2, 32, 96), (1, 8, 8, 64, 64),
                                           (3, 32, 8, 128, 300), (8, 32, 8, 128, 1024),
                                           (2, 8, 1, 64, 2000),

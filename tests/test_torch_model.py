@@ -64,7 +64,9 @@ def test_configs_are_copies():
         assert full == dataclasses.asdict(tconfigs.get_config(arch))
         assert dataclasses.asdict(reduced_config(get_config(arch))) == dataclasses.asdict(
             tconfigs.reduced_config(tconfigs.get_config(arch)))
-    assert tconfigs.ARCH_IDS == ["granite-8b", "rwkv6-1.6b", "zamba2-7b"]
+    assert tconfigs.ARCH_IDS == ["whisper-small", "zamba2-7b", "mistral-nemo-12b", "yi-34b",
+                                 "granite-8b", "command-r-35b", "llama4-scout-17b-a16e",
+                                 "grok-1-314b", "rwkv6-1.6b", "internvl2-1b"]
 
 
 def test_prefill_and_decode_logits_match_jax(pair):
@@ -177,13 +179,17 @@ def test_port_init_shapes_match_jax_and_are_seeded():
 def test_build_model_gates_unported_families_and_training():
     """rwkv builds, trains and serves: its prefill, decode step and cache
     give finite logits and its recurrent state, with no batched prefill
-    and no pool; granite's loss is finite; moe and ssm still raise naming
-    their ROADMAP item."""
+    and no pool; granite's loss is finite; moe and the pure SSM build (an
+    MoE granite pools but takes no batched prefill; the SSM is recurrent);
+    a frontend batch puts its rows ahead of the tokens."""
     _, tcfg = _cfgs()
     trc = tconfigs.RunConfig(param_dtype="float32", compute_dtype="float32")
-    for kw in (dict(family="moe", n_experts=4, top_k=2), dict(family="ssm", ssm_state=16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuild_model(dataclasses.replace(tcfg, **kw), trc, device="cpu")
+    moe = tbuild_model(dataclasses.replace(tcfg, family="moe", n_experts=4, top_k=2), trc,
+                       device="cpu")
+    assert moe.decode_state.poolable and moe.decode_state.batched_prefill is None
+    ssm = tbuild_model(dataclasses.replace(tcfg, family="ssm", ssm_state=16, ssm_headdim=32),
+                       trc, device="cpu")
+    assert ssm.decode_state.kind == "recurrent" and not ssm.decode_state.poolable
     rwkv = tbuild_model(tconfigs.reduced_config(tconfigs.get_config("rwkv6-1.6b")), trc,
                         device="cpu")
     ds = rwkv.decode_state
@@ -203,8 +209,12 @@ def test_build_model_gates_unported_families_and_training():
     loss, aux = model.loss(model.init(0), {"tokens": toks})
     assert loss.shape == () and torch.isfinite(loss) and float(aux["aux"]) == 0.0
     assert torch.isfinite(rwkv.loss(rwkv.init(0), {"tokens": toks})[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(model.init(0), {"tokens": toks, "frontend": torch.zeros((2, 4, 128))})
+    params = model.init(0)
+    rows = torch.zeros((2, 4, 128))
+    fl, faux = model.loss(params, {"tokens": toks, "frontend": rows})
+    assert torch.isfinite(fl) and float(faux["aux"]) == 0.0
+    _, fcache = model.prefill(params, {"tokens": toks, "frontend": rows}, 32)
+    assert fcache["pos"].tolist() == [16, 16]
     with pytest.raises(ValueError, match="param_dtype"):
         tbuild_model(tcfg, tconfigs.RunConfig(param_dtype="float32"), device="cpu")
     assert model.device == torch.device("cpu")

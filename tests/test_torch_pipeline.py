@@ -221,7 +221,7 @@ def test_moe_and_frontend_are_refused():
         tpp.geometry(dataclasses.replace(tcfg, n_experts=8), shape, trcfg, make_host_mesh())
     built = tpp.make_pp_train_step(tcfg, shape, trcfg, make_host_mesh(), device="cpu")
     toks = torch.from_numpy(_tokens(cfg.vocab_size))
-    with pytest.raises(NotImplementedError, match="frontend"):
+    with pytest.raises(ValueError, match="frontend"):   # rows the config has no room for
         built["schedule"](built["to_pipeline"](built["model"].init(0)),
                           {"tokens": toks, "frontend": torch.zeros(BATCH, 4, tcfg.d_model)})
 
