@@ -173,7 +173,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
    served shapes;
 22. ``serve_dense_configs``: mistral-nemo-12b at full width and depth
    (q_dim 4096 != d_model 5120) over bucketed dense lanes and over the
-   paged pool: exact launches, the kernels held at the served shapes.
+   paged pool: exact launches, the kernels held at the served shapes;
+23. ``parity_gspmd``: the GSPMD strategies (``launch/steps.py``,
+   ``core/pipeline_gspmd.py``) in fp32 against the port's unsplit step on
+   the card: gspmd_tp at grad_accum 2 (reduced whisper-small, reduced
+   llama4), gspmd_pp on an emulated (4, 1) mesh (reduced grok-1 and llama4
+   at 8 layers, granite-8b's full width at 4 layers), the reduced ones
+   also against the CPU; loss, every gradient, exact launches, ``meta``;
+24. ``train_gspmd``: whisper-small (full, gspmd_tp, grad_accum 2),
+   granite-8b (full width, 8 layers, gspmd_pp over 4 stages) and
+   llama4-scout (full width, 1 layer, gspmd_pp over 2 stages, one a pad
+   slot) trained in bf16 with remat: a falling loss, exact launches, step
+   times, tok/s, MFU, peak memory, a profiled step;
+25. ``dryrun``: the analytic dry-run of every arch x shape on both
+   production meshes and the H100-mesh roofline (host only).
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: a dense path must launch flash, decode and RMSNorm kernels and
@@ -249,7 +262,7 @@ BF16_MODEL_TOL = 0.25
 PHASES = ("build", "kernels", "parity", "parity_bf16", "parity_train", "serve", "serve_paged",
           "serve_stages", "agent", "serve_spec", "serve_fleet", "fed", "serve_rwkv",
           "serve_hybrid", "serve_moe", "serve_encdec", "serve_vlm", "serve_dense_configs",
-          "train", "train_hybrid", "resnet", "train_pp")
+          "train", "train_hybrid", "resnet", "train_pp", "parity_gspmd", "train_gspmd", "dryrun")
 # the phases that serve full-width granite-8b, one set of weights between them
 GRANITE_PHASES = ("serve", "serve_paged", "serve_stages", "agent", "serve_spec", "serve_fleet",
                   "fed")
@@ -4867,6 +4880,347 @@ def phase_train_pp(results: dict, n_steps: int = 10, n_warm: int = 10,
         f"{', '.join(f'{t:.1f}' for t in times)}): {pp_ms / un_ms:.2f}x")
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: the GSPMD strategies, full-width training through them, and
+# the production-mesh dry-run
+# ---------------------------------------------------------------------------
+
+GSPMD_OPT = dict(lr=1e-2, warmup_steps=0, schedule="const", weight_decay=0.0)
+
+
+def gspmd_launches(cfg, strategy: str, n_mb: int, remat: bool) -> dict:
+    """Kernel launches of one GSPMD step (forward kernels; the backwards run
+    the plain versions) over ``n_mb`` microbatches: every layer's kernels
+    once per forward (twice under remat: its recompute) and the final norms
+    once a microbatch.  A dense or MoE layer: flash once, RMSNorm twice;
+    whisper: an encoder layer flash once and RMSNorm twice, a decoder layer
+    flash twice (self and cross) and RMSNorm three times, plus the encoder's
+    and the decoder's final norms.  gspmd_pp's loss is the mean of the
+    model's loss over its microbatches, so each microbatch passes every
+    real layer once."""
+    from repro_torch.kernels import ops
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    f = 1 + int(remat)
+    if cfg.n_enc_layers:
+        want["flash_attention"] = n_mb * f * (cfg.n_enc_layers + 2 * cfg.n_layers)
+        want["rmsnorm"] = n_mb * (f * (2 * cfg.n_enc_layers + 3 * cfg.n_layers) + 2)
+    else:
+        want["flash_attention"] = n_mb * f * cfg.n_layers
+        want["rmsnorm"] = n_mb * (f * 2 * cfg.n_layers + 1)
+    return want
+
+
+def _gspmd_grads(built, params, batch, opt_cfg):
+    """One step of ``built["fn"]`` from ``params`` (updated in place) and a
+    fresh AdamW state: (metrics as floats, the step's gradient leaves read
+    back from its first moment, ``m = (1 - b1) x clip(g)``)."""
+    from repro_torch.convert import leaves
+    from repro_torch.optim import adamw
+    _, opt, met = built["fn"](params, adamw.init(params), batch)
+    met = {k: v.item() for k, v in met.items()}
+    scale = min(1.0, opt_cfg.clip_norm / (met["grad_norm"] + 1e-9))
+    return met, [m / ((1 - opt_cfg.b1) * scale) for m in leaves(opt["m"])]
+
+
+def _mean_loss_grads(model, params, batches):
+    """The unsplit model's loss and gradients (the launcher's: ``model.loss``
+    by autograd), averaged over ``batches``."""
+    from repro_torch.convert import leaves
+    flat = list(leaves(params))
+    for p in flat:
+        p.requires_grad_(True)
+    loss, grads = 0.0, None
+    for b in batches:
+        lb, _ = model.loss(params, b)
+        g = torch.autograd.grad(lb, flat)
+        grads = list(g) if grads is None else [a + c for a, c in zip(grads, g)]
+        loss += lb.item()
+    return loss / len(batches), [g / len(batches) for g in grads]
+
+
+def _gate_grads(got, ref, what: str) -> float:
+    """``_grad_err`` of gradients ``got`` against ``ref`` (either device),
+    raised on past GRAD_TOL; returns it."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{what}: {len(got)} gradient leaves vs {len(ref)}")
+    err = _grad_err(got, [r.cpu() for r in ref])
+    if not err <= GRAD_TOL:
+        raise AssertionError(f"{what}: gradients {err:.3e} of max(1, max|g|) beyond {GRAD_TOL}")
+    return err
+
+
+def _gspmd_batch(cfg, batch: int, seq: int, device: str, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq),
+                                                  dtype=np.int32))}
+    if cfg.n_enc_layers:
+        out["frames"] = torch.as_tensor(rng.standard_normal(
+            (batch, cfg.frontend_seq, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def phase_parity_gspmd() -> None:
+    """The GSPMD strategies on the card in fp32 (TF32 off), each against
+    the port's own unsplit step (``model.loss`` by autograd) on the card from
+    the same params: gspmd_tp at grad_accum 2 on reduced whisper-small and
+    reduced llama4 (the unsplit loss and gradients averaged over the same
+    two contiguous row blocks, so MoE capacity sees the same groups), also
+    held to the same step on the CPU; gspmd_pp on an emulated (4, 1) mesh on
+    reduced grok-1 and llama4 at 8 layers (4 microbatches; the unsplit step
+    averaged over them), also held to the CPU, and on granite-8b at full
+    width cut to 4 layers.  Loss within TRAIN_LOSS_TOL relative, each
+    gradient leaf (read back from the step's first moment) within GRAD_TOL
+    x max(1, max|g|), launches exact, ``meta`` equal to the CPU build's; the
+    MoE runs print the smallest top-k gap."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config, reduced_config
+    from repro_torch.convert import move_params, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig(**GSPMD_OPT)
+    clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)
+
+    def red(arch, n=0):
+        cfg = reduced_config(get_config(arch))
+        return dataclasses.replace(cfg, n_layers=n) if n else cfg
+    # (what, config, strategy, mesh, batch, seq, also on the CPU)
+    cases = [("whisper-small reduced", red("whisper-small"), "gspmd_tp", (1, 1), 8, 32, True),
+             ("llama4-scout reduced", red("llama4-scout-17b-a16e"), "gspmd_tp", (1, 1), 8, 64,
+              True),
+             ("grok-1 reduced, 8 layers", red("grok-1-314b", 8), "gspmd_pp", (4, 1), 8, 32, True),
+             ("llama4-scout reduced, 8 layers", red("llama4-scout-17b-a16e", 8), "gspmd_pp",
+              (4, 1), 8, 64, True),
+             ("granite-8b full width, 4 layers",
+              dataclasses.replace(get_config("granite-8b"), n_layers=4), "gspmd_pp", (4, 1), 4,
+              128, False)]
+    for what, cfg, strategy, mesh_shape, batch, seq, on_cpu in cases:
+        tp = strategy == "gspmd_tp"
+        rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False,
+                         strategy=strategy, grad_accum=2 if tp else 1,
+                         microbatches=0 if tp or batch < 8 else 4)
+        shape = ShapeConfig("parity", seq, batch, "train")
+        mesh = make_host_mesh(mesh_shape)
+        built = make_train_step(cfg, shape, rcfg, mesh, opt_cfg, device="cuda")
+        cpu_built = make_train_step(cfg, shape, rcfg, mesh, opt_cfg, device="cpu")
+        meta = built["meta"]
+        if meta != cpu_built["meta"]:
+            raise AssertionError(f"{what}: meta {meta} vs the CPU build's {cpu_built['meta']}")
+        to_pp = built.get("to_pipeline", lambda p: p)
+        model = built["model"]
+        p0 = model.init(0)
+        b = _gspmd_batch(cfg, batch, seq, "cuda")
+        n_mb = meta["accum"] if tp else meta["M"]
+        rows = batch // n_mb
+        mbs = [{k: v[i * rows:(i + 1) * rows] for k, v in b.items()} for i in range(n_mb)]
+        l_ref, g_ref = _mean_loss_grads(model, clone(p0), mbs)
+        with MoeRecorder(check=False) as rec:
+            ops.reset_launch_counts()
+            # the stage-slot layout's leaves come in the layer list's order
+            met, grads = _gspmd_grads(built, to_pp(clone(p0)), b, opt_cfg)
+            counts = ops.launch_counts()
+        check_launches(counts, gspmd_launches(cfg, strategy, n_mb, remat=False),
+                       f"{what} {strategy} step")
+        loss_err = abs(met["loss"] - l_ref) / abs(l_ref)
+        if not loss_err <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"{what} {strategy} loss {met['loss']} vs unsplit {l_ref}")
+        grad_err = _gate_grads(grads, g_ref, f"{what} {strategy} vs unsplit")
+        cpu_note = ""
+        if on_cpu:
+            met_c, g_c = _gspmd_grads(cpu_built, to_pp(move_params(p0, "cpu")),
+                                      _gspmd_batch(cfg, batch, seq, "cpu"), opt_cfg)
+            c_err = abs(met["loss"] - met_c["loss"]) / abs(met_c["loss"])
+            if not c_err <= TRAIN_LOSS_TOL:
+                raise AssertionError(f"{what} {strategy} loss card {met['loss']} vs CPU "
+                                     f"{met_c['loss']}")
+            cg_err = _gate_grads(grads, g_c, f"{what} {strategy} card vs CPU")
+            cpu_note = (f"; against the same step on the CPU: loss rel {c_err:.2e}, gradients "
+                        f"worst {cg_err:.2e}")
+        moe = f"; MoE: {rec.summary()}" if cfg.n_experts else ""
+        log(f"[parity-gspmd] {what} (d_model {cfg.d_model}, {cfg.n_layers} layers), {strategy} "
+            f"on {mesh_shape}, fp32, {batch} x {seq} tokens: meta {meta}; loss {met['loss']:.6f} "
+            f"vs the unsplit step's {l_ref:.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_TOL}), aux "
+            f"{met['aux']:.6f}; {len(g_ref)} gradient leaves worst {grad_err:.2e} of max(1, "
+            f"max|g|) (tol {GRAD_TOL}){cpu_note}; launches {nonzero(counts)}{moe}")
+        del built, cpu_built, model, p0, g_ref, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# the full-width GSPMD training runs: (arch, layers (0: all), the strategy
+# asked for, the strategy it must resolve to, mesh, batch, seq, steps)
+GSPMD_RUNS = (("whisper-small", 0, "auto", "gspmd_tp", (1, 1), 8, 448, 10),
+              ("granite-8b", 8, "gspmd_pp", "gspmd_pp", (4, 1), 8, 512, 10),
+              ("llama4-scout-17b-a16e", 1, "auto", "gspmd_pp", (2, 1), 8, 512, 5))
+
+
+def phase_train_gspmd(results: dict, warmup: int = 3) -> None:
+    """Full-width training through the GSPMD step builders, bf16 with remat
+    (the RunConfig defaults), random weights from seed 0, AdamW at lr
+    TRAIN_LR (warmup 3, weight decay 0.01), through the Trainer on
+    TokenPipeline batches (whisper's with FrontendPipeline frames):
+    whisper-small at full depth by its ``auto`` strategy (gspmd_tp) at
+    grad_accum 2; granite-8b cut to 8 of 36 layers by gspmd_pp on an
+    emulated (4, 1) mesh (S=4, 2 layers a stage, M=8); llama4-scout cut to 1
+    of 48 layers by its ``auto`` strategy (gspmd_pp) on (2, 1), its stage 1
+    the pad slot.  Each run: launches exact, finite training losses and aux,
+    a held-out loss that falls over the run, the step
+    (trainer's clock and card events, median after ``warmup``), tok/s, MFU
+    (6 N D over non-embedding active params, and the analytic model's
+    FLOPs without remat), peak memory, a profiled step's busy share, and
+    every kernel held against its plain version at the step's shapes (one
+    forward)."""
+    import shutil
+    from repro_torch.analysis.analytic import step_flops
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.convert import leaves
+    from repro_torch.data.synthetic import DataConfig, FrontendPipeline, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import token_batches
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    for arch, n_layers, strategy, resolved, mesh_shape, batch, seq, n_steps in GSPMD_RUNS:
+        t_build = time.perf_counter()
+        cfg = get_config(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        rcfg = RunConfig(strategy=strategy, grad_accum=2 if cfg.n_enc_layers else 1)
+        shape = ShapeConfig("train_gspmd", seq, batch, "train")
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=3, total_steps=n_steps,
+                                    weight_decay=0.01)
+        built = make_train_step(cfg, shape, rcfg, make_host_mesh(mesh_shape), opt_cfg,
+                                device="cuda")
+        meta, model = built["meta"], built["model"]
+        if meta["strategy"] != resolved:
+            raise AssertionError(f"{arch}: strategy {strategy!r} resolved to "
+                                 f"{meta['strategy']}, expected {resolved}")
+        to_pp = built.get("to_pipeline", lambda p: p)
+        from_pp = built.get("from_pipeline", lambda p: p)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                          seed=rcfg.seed)
+        pipe = (FrontendPipeline(dcfg, cfg.frontend_seq, cfg.d_model, key="frames")
+                if cfg.n_enc_layers else TokenPipeline(dcfg))
+        held_out = next(token_batches(pipe, 100_000, "cuda"))
+
+        def eval_loss(p):
+            with torch.no_grad():
+                return model.loss(from_pp(p), held_out)[0].item()
+        params = to_pp(model.init(0))
+        n_params = sum(t.numel() for t in leaves(params))
+        loss_before = eval_loss(params)
+        n_mb = meta.get("accum") or meta["M"]
+        per_step = gspmd_launches(cfg, meta["strategy"], n_mb, rcfg.remat)
+        # every kernel against its plain version at the step's shapes: one forward
+        fwd = (lambda: built["loss_fn"](params, held_out)) if "loss_fn" in built else \
+            (lambda: model.loss(params, held_out))
+        with torch.no_grad():
+            served = check_served_kernels(f"{arch} {meta['strategy']} forward", fwd,
+                                          gspmd_launches(cfg, meta["strategy"],
+                                                         n_mb if "loss_fn" in built else 1,
+                                                         False))
+        events = []
+
+        def on_metrics(step, rec):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        ckpt_dir = ROOT / "build" / "chip_smoke_train_gspmd"      # stays empty: no step saves
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        aux = []
+        step_fn = built["fn"]
+
+        def counted(p, o, b):
+            p, o, met = step_fn(p, o, b)
+            aux.append(met["aux"])
+            return p, o, met
+        tr = Trainer(TrainerConfig(total_steps=n_steps, ckpt_every=n_steps + 1,
+                                   ckpt_dir=str(ckpt_dir), log_every=5),
+                     counted, lambda: (params, adamw.init(params)),
+                     lambda start: token_batches(pipe, start, "cuda"), on_metrics=on_metrics)
+        set_up = time.perf_counter() - t_build
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        check_launches(counts, {k: n * n_steps for k, n in per_step.items()},
+                       f"{arch} {meta['strategy']} training, {n_steps} steps")
+        losses = out["losses"]
+        aux = [a.item() for a in aux]
+        loss_after = eval_loss(out["params"])
+        # the held-out batch is the same before and after; each training
+        # loss is another batch's
+        if not (all(np.isfinite(losses)) and all(np.isfinite(aux)) and
+                loss_after < loss_before):
+            raise AssertionError(f"{arch} {meta['strategy']} training losses {losses}, aux "
+                                 f"{aux}, held-out loss {loss_before} -> {loss_after}: not "
+                                 f"finite or not falling")
+        useful = cfg.active_params() - cfg.embed_params()
+        log(f"[train-gspmd] {arch} (d_model {cfg.d_model}, {cfg.n_layers} layers), bf16, remat, "
+            f"{meta['strategy']} on {mesh_shape}: meta {meta}; {n_params / 1e9:.3f} B params "
+            f"held ({useful / 1e9:.3f} B non-embedding active); set-up {set_up:.1f} s; "
+            f"launches per step {nonzero(per_step)}; each kernel against its plain version at "
+            f"the step's shapes (bf16 gate {BF16_TOL} x max(1, |ref|)): {served}; aux per step "
+            f"{', '.join(f'{a:.4f}' for a in aux)}")
+        log_steps("train-gspmd", out, events, warmup, batch, seq, n_steps, loss_before,
+                  loss_after, useful, "non-embedding active params", peak, wall)
+        step_ms = float(np.median([r["step_s"] * 1e3 for r in out["history"][warmup:]]))
+        analytic = step_flops(cfg, shape, remat=False)
+        log(f"[train-gspmd] {arch}: analytic step FLOPs without remat {analytic:.4e} "
+            f"(encoder frames and attention included) -> {analytic / (step_ms / 1e3) / 1e12:.1f} "
+            f"TFLOP/s, {analytic / (step_ms / 1e3) / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s bf16")
+        add_launches(results, counts, f"train_gspmd_{arch}")
+        p, o, b0 = out["params"], out["opt"], held_out
+        profile_step(lambda: step_fn(p, o, b0), f"{arch} {meta['strategy']} training step "
+                     f"({batch} x {seq} tokens)", top=8, reps=1)
+        del built, model, params, out, p, o, tr, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun() -> None:
+    """The analytic dry-run (``launch/dryrun.py``) over every arch x shape on
+    both production meshes, then the roofline (``analysis/roofline.py``)
+    with the H100-mesh profile (datasheet figures, ``hw/specs.py``): ok /
+    skip counts, the cells whose peak fits 80 GB, each cell's dominant
+    term.  Host only; artifacts under build/chip_smoke_dryrun."""
+    import shutil
+    from repro_torch.analysis.roofline import best_rows
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    cells = [dryrun.run_cell(a, s, mp, out_dir=out, verbose=False)
+             for a in ARCH_IDS for s in SHAPES for mp in (False, True)]
+    took = time.perf_counter() - t0
+    n = {st: sum(c["status"] == st for c in cells) for st in ("ok", "skip", "error")}
+    if n["error"]:
+        bad = [(c["arch"], c["shape"], c["mesh"], c["error"]) for c in cells
+               if c["status"] == "error"]
+        raise AssertionError(f"dry-run cells failed: {bad}")
+    fits = sum(bool(c.get("fits_h100_80gb")) for c in cells)
+    rows = best_rows(cells)
+    dominant = {}
+    for key in sorted(rows):
+        row = rows[key]
+        if row.status != "ok":
+            continue
+        dominant[row.dominant] = dominant.get(row.dominant, 0) + 1
+        log(f"[dryrun] {'/'.join(key)} ({row.strategy}): compute {row.compute_s * 1e3:.2f} ms, "
+            f"memory {row.memory_s * 1e3:.2f} ms, collective {row.collective_s * 1e3:.2f} ms "
+            f"-> {row.dominant}; peak {row.peak_gb:.2f} GB/device; useful {row.useful_ratio:.3f}")
+    log(f"[dryrun] {len(cells)} cells in {took:.2f} s: {n['ok']} ok, {n['skip']} skipped; "
+        f"{fits} of the ok cells fit one 80 GB H100; dominant terms {dominant} (H100-mesh "
+        f"datasheet profile; activations, HBM traffic and collectives are estimates)")
+
+
 def _train_losses(cfg, rcfg, lr: float, n_steps: int, batch: int, seq: int, device: str,
                   params=None, frozen: str = "") -> list:
     """Per-step losses of the launcher's step function from seed-0 weights
@@ -5289,6 +5643,15 @@ def main(argv=None) -> int:
     if "train_pp" in phases:
         lap("train_pp")
         phase_train_pp(results)
+    if "parity_gspmd" in phases:
+        lap("parity_gspmd")
+        phase_parity_gspmd()
+    if "train_gspmd" in phases:
+        lap("train_gspmd")
+        phase_train_gspmd(results)
+    if "dryrun" in phases:
+        lap("dryrun")
+        phase_dryrun()
     if "lr_probe" in phases:
         lap("lr_probe")
         phase_lr_probe()

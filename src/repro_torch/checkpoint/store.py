@@ -80,6 +80,7 @@ def _gc(ckpt_dir: Path, keep: int) -> None:
 
 def latest_step(ckpt_dir: Path) -> Optional[int]:
     steps = sorted(p.name for p in Path(ckpt_dir).glob("step_*") if p.is_dir())
+    # repro-lint: allow[R004] parses a checkpoint directory name (a host string), not a tensor
     return int(steps[-1].split("_")[1]) if steps else None
 
 

@@ -48,6 +48,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.convert import leaves, unflatten
 from repro_torch.core import schedules as sched
 from repro_torch.core.partition import PipelinePlan, plan_pipeline
+from repro_torch.core import sharding as sh
 from repro_torch.launch.mesh import dp_degree
 from repro_torch.models import lm as LM
 from repro_torch.models.api import build_model
@@ -324,8 +325,9 @@ def make_pp_train_step(cfg: ModelConfig, shape: ShapeConfig, rcfg: RunConfig, me
     """The pipelined train step on ``device`` (default ``cuda``):
     ``fn(params_pp, opt_state, batch) -> (params_pp, opt_state, metrics)``,
     AdamW over the pipeline tree (params and moments updated in place),
-    with the reference's ``meta``; ``to_pipeline`` / ``from_pipeline``
-    convert params; ``schedule.trace`` is the last step's
+    with the reference's ``meta``, ``args`` (``meta`` stand-ins) and spec
+    trees (:mod:`repro_torch.launch.steps`' keys); ``to_pipeline`` /
+    ``from_pipeline`` convert params; ``schedule.trace`` is the last step's
     :class:`PipelineTrace`."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     plan, g = geometry(cfg, shape, rcfg, mesh)
@@ -337,10 +339,23 @@ def make_pp_train_step(cfg: ModelConfig, shape: ShapeConfig, rcfg: RunConfig, me
         params, opt_state, stats = adamw.update(opt_cfg, grads, opt_state, params)
         return params, opt_state, dict(loss=loss, **stats)
 
+    # the reference's shardings, in the stage-slot layout: a slot's stage
+    # (its position on "model") is its list index
+    pp_shape = to_pipeline(build_model(cfg, rcfg, device="meta").init(0), plan)
+    batch_specs = model.input_specs(shape)
+    _, p_ref, m_ref = sh.pp_shardmap_shardings(pp_shape, mesh)
+    p_shard, m_shard = sh.to_port_layout(pp_shape, p_ref), sh.to_port_layout(pp_shape, m_ref)
+    opt_shard = {"m": m_shard, "v": m_shard, "step": ()}
+    b_shard = sh.map_with_path(lambda _, t: (sh.data_entry(mesh),) if t.dim() else (),
+                               batch_specs)
     gpipe_ticks = g.M + g.S - 1
     hybrid_ticks = g.M + 2 * g.S - 2
     return dict(
         fn=train_step,
+        args=(pp_shape, adamw.init(pp_shape), batch_specs),
+        in_shardings=(p_shard, opt_shard, b_shard),
+        out_shardings=(p_shard, opt_shard, {k: () for k in ("loss", "grad_norm", "lr")}),
+        donate_argnums=(0, 1),
         meta={"strategy": "pp_shardmap", "schedule": rcfg.schedule,
               "S": g.S, "R": g.R, "M": g.M, "layers_per_stage": g.lps,
               "n_pad_layers": plan.n_pad,

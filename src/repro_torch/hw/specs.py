@@ -13,7 +13,9 @@ transport that device uses (USB for phones in the paper; for the H100 the
 host round trip a boundary frame takes through the wire codec).
 
 The reference's accelerator-fleet profile and its link-efficiency factor
-are not copied: their only user is the reference's roofline analysis.
+are not copied.  The port's roofline (:mod:`repro_torch.analysis.roofline`)
+rates its production meshes with :data:`H100_MESH` and
+:data:`LINK_EFFICIENCY` instead.
 """
 
 from __future__ import annotations
@@ -89,6 +91,29 @@ H100 = DeviceProfile(
     decode_steps_per_s=38.26,
     prefill_tokens_per_s=20357.1,
 )
+
+# --- one H100 of a production mesh (the roofline's device) -----------------
+# NVIDIA's H100 SXM5 datasheet: 989 TFLOP/s dense bf16, 80 GB HBM3 at 3.35
+# TB/s.  A 16-wide mesh axis spans two 8-GPU NVLink nodes, so the slowest hop
+# of a collective over it is the inter-node one: NDR InfiniBand, 400 Gb/s =
+# 50 GB/s a GPU each way, the single link rate of the roofline's formula.
+# Datasheet figures, not readings; the serving rates are H100's (the
+# roofline reads none of them).  Kept out of PROFILES: the planners never
+# place a stage on it.
+H100_MESH = DeviceProfile(
+    name="h100-sxm-mesh",
+    year=2023,
+    flops=989e12,
+    mem_bytes=80e9,
+    mem_bw=3.35e12,
+    link_bw=50e9,
+    dtype="bf16",
+    decode_steps_per_s=H100.decode_steps_per_s,
+    prefill_tokens_per_s=H100.prefill_tokens_per_s,
+)
+# The share of the link rate a collective moves as payload (protocol and
+# scheduling overhead): an assumption of this port, not a measurement.
+LINK_EFFICIENCY = 0.8
 
 # --- Paper Table 1 devices --------------------------------------------------
 XEON_E3_1225V3 = DeviceProfile(

@@ -12,10 +12,14 @@ and defaults are kept, with one quirk: ``--reduced`` is ``store_true`` with
 reference's does; ROADMAP §3).  ``--use-kernels`` is accepted and has no
 effect: the device decides between kernels and plain versions.
 ``--strategy pp_shardmap`` trains through the pipeline
-(:mod:`repro_torch.core.pipeline`, ``--schedule gpipe|hybrid``) on an
-emulated (1, ``--model-axis``) mesh, every position on the one device
-(the reference's mesh is its process's devices); the GSPMD strategies
-wait for ROADMAP §1 item 11c.  Checkpoints go every ``--ckpt-every``
+(:mod:`repro_torch.core.pipeline`, ``--schedule gpipe|hybrid``),
+``--strategy gspmd_tp`` / ``gspmd_pp`` through the step builders
+(:func:`repro_torch.launch.steps.make_train_step`: data x tensor parallel
+with gradient accumulation, or the stacked-stage pipeline with its stages
+on "data"), each on an emulated (1, ``--model-axis``) mesh, every position
+on the one device (the reference's mesh is its process's devices).  On
+that mesh ``gspmd_pp`` runs one stage, as the reference's launcher does on
+its one-device host mesh.  Checkpoints go every ``--ckpt-every``
 steps to ``--ckpt-dir`` (under the working directory by default), and a
 run resumes from the latest one.
 """
@@ -30,9 +34,9 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, RunConfig, ShapeConfig, get_config, reduced_config
 from repro_torch.convert import leaves, unflatten
-from repro_torch.core.pipeline import make_pp_train_step
 from repro_torch.data.synthetic import DataConfig, FrontendPipeline, TokenPipeline
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models.api import Model, build_model
 from repro_torch.optim import adamw
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -80,14 +84,11 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--use-kernels", action="store_true")
     ap.add_argument("--model-axis", type=int, default=2,
-                    help="pp_shardmap: positions of the emulated mesh's model axis "
+                    help="positions of the emulated mesh's model axis "
                          "(default 2, the paper's host + phone)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.strategy in ("gspmd_tp", "gspmd_pp"):
-        raise NotImplementedError(f"strategy {args.strategy!r}: the GSPMD strategies are not "
-                                  f"ported to repro_torch yet (ROADMAP §1 item 11c)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -101,12 +102,12 @@ def main(argv=None):
                                 total_steps=args.steps, weight_decay=0.01)
 
     step_fn, to_pipeline = make_step_fn(model, opt_cfg), lambda p: p
-    if args.strategy == "pp_shardmap":
-        built = make_pp_train_step(cfg, ShapeConfig("cli", args.seq, args.batch, "train"), rcfg,
-                                   make_host_mesh((1, args.model_axis)), opt_cfg,
-                                   device=args.device)
-        step_fn, to_pipeline = built["fn"], built["to_pipeline"]
-        print(f"[train] pipeline {built['meta']}")
+    if args.strategy != "single":
+        built = make_train_step(cfg, ShapeConfig("cli", args.seq, args.batch, "train"), rcfg,
+                                make_host_mesh((1, args.model_axis)), opt_cfg,
+                                strategy=args.strategy, device=args.device)
+        step_fn, to_pipeline = built["fn"], built.get("to_pipeline", to_pipeline)
+        print(f"[train] {args.strategy} {built['meta']}")
 
     def init_state():
         p = to_pipeline(model.init(0))

@@ -32,11 +32,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.convert import leaves
 from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 from repro_torch.models.blocks import is_recurrent
+from repro_torch.models.common import ShapeOnlyGenerator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,11 +94,14 @@ class Model:
     decode_step: Callable[[dict, dict, torch.Tensor], Tuple[torch.Tensor, dict]]
     init_cache: Callable[[int, int], dict]
     decode_state: DecodeState = DecodeState(kind="attention")
+    input_specs: Optional[Callable[[ShapeConfig], Dict[str, Any]]] = None
 
 
 def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     """The model's entry points on ``device`` (default ``cuda``).  Params and
-    compute share one dtype here."""
+    compute share one dtype here.  On ``meta`` the init builds every leaf's
+    shape and dtype and draws nothing; ``model.input_specs(shape)`` gives
+    ``meta`` stand-ins for a cell's inputs on any device."""
     if rcfg.param_dtype != rcfg.compute_dtype:
         raise ValueError(f"repro_torch runs with param_dtype == compute_dtype, got "
                          f"{rcfg.param_dtype!r} and {rcfg.compute_dtype!r}")
@@ -105,6 +109,8 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
     dt = LM.dtype_of(rcfg.param_dtype)
 
     def gen(seed: int) -> torch.Generator:
+        if device.type == "meta":
+            return ShapeOnlyGenerator()
         return torch.Generator(device=device).manual_seed(seed)
 
     if cfg.family == "audio" and cfg.n_enc_layers:
@@ -117,7 +123,8 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
             init_cache=lambda bsz, ml: ED.init_encdec_cache(cfg, bsz, ml, dt, device),
             decode_state=DecodeState(kind="encdec",
                                      window_step=lambda p, c, t: ED.encdec_decode_window(
-                                         cfg, p, c, t, rcfg)))
+                                         cfg, p, c, t, rcfg)),
+            input_specs=lambda shape: ED.encdec_input_specs(cfg, shape, rcfg))
 
     # right-padded batched prefill is exact only when pad tokens cannot leak
     # into real lanes: full causal attention, no recurrent state, no
@@ -160,6 +167,7 @@ def build_model(cfg: ModelConfig, rcfg: RunConfig, device="cuda") -> Model:
                                  window_step=lambda p, c, t: LM.lm_decode_window(
                                      cfg, p, c, t, rcfg),
                                  pool_window_step=pool_window),
+        input_specs=lambda shape: LM.input_specs(cfg, shape, rcfg),
     )
 
 

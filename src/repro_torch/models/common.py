@@ -19,10 +19,22 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops
 
 
+class ShapeOnlyGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, where no
+    generator can draw: an init run with it builds every leaf's shape and
+    dtype and draws nothing (the counterpart of the reference's
+    ``jax.eval_shape(model.init)``)."""
+
+    device = torch.device("meta")
+
+
 def truncated_normal(shape: Sequence[int], scale: float, dtype: torch.dtype,
                      gen: torch.Generator) -> torch.Tensor:
     """``scale`` x a standard normal truncated to [-2, 2], drawn in fp32 on
-    the generator's device and cast to ``dtype`` (the reference's init)."""
+    the generator's device and cast to ``dtype`` (the reference's init); on
+    the ``meta`` device only the shape and dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * scale).to(dtype)

@@ -28,12 +28,12 @@ valid.  Decode writes K/V into the cache IN PLACE, as ``lm`` does.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_mlp, chunked_xent, embed_tokens, init_embed,
@@ -233,3 +233,18 @@ def encdec_decode_window(cfg: ModelConfig, params: dict, cache: dict, tokens: to
         logits, cache = encdec_decode_step(cfg, params, cache, tokens[:, j:j + 1], rcfg)
         out.append(logits)
     return torch.stack(out, dim=1), cache
+
+
+def encdec_input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                       rcfg: RunConfig) -> Dict[str, Any]:
+    """``meta`` stand-ins for every input of this cell: train/prefill
+    ``{"tokens", "frames" (B, frontend_seq, D)}``, decode ``{"tokens" (B, 1),
+    "cache"}``."""
+    cdt, meta = dtype_of(rcfg.compute_dtype), torch.device("meta")
+    bsz = shape.global_batch
+    if shape.kind in ("train", "prefill"):
+        return {"tokens": torch.empty((bsz, shape.seq_len), dtype=torch.int32, device=meta),
+                "frames": torch.empty((bsz, cfg.frontend_seq, cfg.d_model), dtype=cdt,
+                                      device=meta)}
+    return {"tokens": torch.empty((bsz, 1), dtype=torch.int32, device=meta),
+            "cache": init_encdec_cache(cfg, bsz, shape.seq_len, cdt, meta)}

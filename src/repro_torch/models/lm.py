@@ -39,12 +39,12 @@ one-stage case, so a cut changes nothing but where the layer loop pauses.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
@@ -365,3 +365,20 @@ def init_pool_cache(cfg: ModelConfig, n_lanes: int, n_blocks: int, block_size: i
     return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)},
             "pos": torch.zeros((n_lanes,), dtype=torch.int32, device=device)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, rcfg: RunConfig) -> Dict[str, Any]:
+    """``meta`` tensors standing in for every model input of this cell (the
+    reference's ``ShapeDtypeStruct``s): train/prefill ``{"tokens",
+    ["frontend"]}``, decode ``{"tokens" (B, 1), "cache"}`` with the cache of
+    ``shape.seq_len`` positions built on ``meta``."""
+    cdt, meta = dtype_of(rcfg.compute_dtype), torch.device("meta")
+    bsz = shape.global_batch
+    p = cfg.frontend_seq if cfg.frontend else 0
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": torch.empty((bsz, shape.seq_len - p), dtype=torch.int32, device=meta)}
+        if p:
+            specs["frontend"] = torch.empty((bsz, p, cfg.d_model), dtype=cdt, device=meta)
+        return specs
+    return {"tokens": torch.empty((bsz, 1), dtype=torch.int32, device=meta),
+            "cache": init_cache(cfg, bsz, shape.seq_len, cdt, meta)}

@@ -4,9 +4,8 @@ Wires together: a step function -> data iterator -> async wire-codec
 checkpoints -> thermal monitor -> failure recovery (restore the latest
 checkpoint and resume).  The step function, the initial state and the
 data are injected, as in the reference; the reference's resharding on
-restore (``shardings``) waits for the GSPMD strategies (ROADMAP §1 item
-11c): a restored leaf lands on the device of the state ``init_state``
-builds.
+restore (``shardings``) has nothing to place on the port's one device: a
+restored leaf lands on the device of the state ``init_state`` builds.
 """
 
 from __future__ import annotations

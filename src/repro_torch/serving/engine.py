@@ -562,6 +562,7 @@ class ServeEngine:
         # one host transfer per step: Sampler.sample returns host numpy;
         # tolist() converts the whole batch at once so the per-lane loop
         # below never touches a device tensor element-wise
+        # repro-lint: allow[R004] Sampler.sample returns host numpy: one list conversion a step
         nxt = self.sampler.sample(logits[:, :self.vocab]).tolist()
         now = self._now()
         busy = self.active()          # before the finish-scan frees lanes

@@ -454,6 +454,7 @@ class PipelineEngine:
         ls = self.lane_sampling
         # the step's one device->host transfer: the last stage's logits feed
         # the host-side sampler in a single batched copy
+        # repro-lint: allow[R004] Sampler.sample returns host numpy: one list conversion a step
         nxt = self.sampler.sample(out[:, :self.vocab]).tolist()
         now = self._now()
         busy = self.active()

@@ -259,7 +259,7 @@ class SpecEngine(ServeEngine):
         for i, req in enumerate(self.slots):
             if req is None or not active[i]:
                 continue
-            n = int(n_emitted[i])
+            n = int(n_emitted[i])  # repro-lint: allow[R004] n_emitted is host numpy from Sampler.accept; a dtype cast, not a sync
             self.backend.rollback(i, w - n)
             self.draft_backend.rollback(i, w - n)
             req.out_tokens.extend(emitted[i])

@@ -247,7 +247,7 @@ def drive_open_loop(engine: ServeEngine, arrival_times: Sequence[float],
             else:
                 # the ONE legitimate nap: a wall-clock engine idling until
                 # its next arrival really does wait in real time
-                time.sleep(min(wait, max_sleep_s))
+                time.sleep(min(wait, max_sleep_s))  # repro-lint: allow[R002] wall-clock engines nap for real; sim clocks take the advance() branch above
     return clock() - t0
 
 

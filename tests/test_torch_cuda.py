@@ -917,3 +917,65 @@ def test_fleet_kill_on_the_card_matches_the_cpu(cuda_device):
         runs.append(({rec.req.rid: rec.req.out_tokens for rec in fleet.completed},
                      snap.as_dict()))
     np.testing.assert_equal(runs[1], runs[0])        # nested, NaN equal to NaN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,strategy,mesh_shape", [
+    ("whisper-small", "gspmd_tp", (1, 1)), ("llama4-scout-17b-a16e", "gspmd_tp", (1, 1)),
+    ("grok-1-314b", "gspmd_pp", (4, 1)), ("granite-8b", "gspmd_pp", (4, 1))])
+def test_gspmd_steps_on_the_card_match_the_cpu(cuda_device, arch, strategy, mesh_shape, capsys):
+    """fp32: a GSPMD train step (gspmd_tp at grad_accum 2, gspmd_pp over 4
+    emulated stages) on reduced configs gives the CPU step's loss and
+    gradient norm; flash and RMSNorm launch; the step is timed by CUDA events
+    (median of 5, printed with ``-s``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config, reduced_config
+    from repro_torch.convert import move_params, tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), n_layers=8)
+    seq = 64 if cfg.attention == "chunked_local" else 32
+    rcfg = RunConfig(param_dtype="float32", compute_dtype="float32", remat=False,
+                     strategy=strategy, grad_accum=2 if strategy == "gspmd_tp" else 1,
+                     microbatches=4 if strategy == "gspmd_pp" else 0)
+    shape = ShapeConfig("t", seq, 8, "train")
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=0, schedule="const", weight_decay=0.0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, seq), dtype=np.int32))}
+    if cfg.n_enc_layers:
+        batch["frames"] = torch.as_tensor(
+            rng.standard_normal((8, cfg.frontend_seq, cfg.d_model)).astype(np.float32))
+    p0 = build_model(cfg, rcfg, device="cpu").init(0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        built = make_train_step(cfg, shape, rcfg, make_host_mesh(mesh_shape), opt_cfg,
+                                device=dev)
+        p = built.get("to_pipeline", lambda t: t)(tree_map(lambda t: t.clone().to(dev), p0))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        _, _, met = built["fn"](p, adamw.init(p), b)
+        out[str(dev)] = (met["loss"].item(), met["grad_norm"].item(), ops.launch_counts())
+    loss_c, norm_c, _ = out["cpu"]
+    loss_g, norm_g, counts = out[str(cuda_device)]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    assert abs(norm_g - norm_c) <= 1e-5 * norm_c
+    assert counts["flash_attention"] > 0 and counts["rmsnorm"] > 0
+    p = built.get("to_pipeline", lambda t: t)(move_params(p0, cuda_device))
+    o = adamw.init(p)
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, o, _ = built["fn"](p, o, b)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    with capsys.disabled():
+        print(f"\n[gspmd] {arch} {strategy} reduced, 8 layers, fp32, 8 x {seq}: step "
+              f"{float(np.median(times)):.2f} ms (median of 5, CUDA events); {built['meta']}")

@@ -351,9 +351,16 @@ def test_launcher_trains_through_the_pipeline(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("strategy", ["gspmd_tp", "gspmd_pp"])
-def test_launcher_gspmd_strategies_raise(strategy):
-    with pytest.raises(NotImplementedError, match="11c"):
-        tlaunch.main(["--strategy", strategy, "--device", "cpu"])
+def test_launcher_gspmd_strategies_raise(strategy, tmp_path, capsys):
+    """The GSPMD strategies no longer raise: each trains 2 steps through
+    the step builders on the launcher's (1, 2) mesh (gspmd_pp: one stage)."""
+    out = tlaunch.main(["--strategy", strategy, "--device", "cpu", "--steps", "2", "--batch",
+                        "4", "--seq", "32", "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    printed = capsys.readouterr().out
+    assert f"[train] {strategy} {{'strategy': '{strategy}'" in printed
+    if strategy == "gspmd_pp":
+        assert "'S': 1" in printed
 
 
 def test_slice_modules_import_with_jax_blocked():
