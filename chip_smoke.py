@@ -21,7 +21,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    their bounds on tensor cores and as fp32 vector work; then flash, both
    decode kernels and RMSNorm at the shapes the other families give them
    (``FAMILY_FLASH`` ... ``FAMILY_RMS``: whisper's non-causal encoder and
-   its cross-attention over 1500 frames, internvl2's D=64 at H/G 7,
+   its cross-attention over 1500 frames, at a prefill and at its gspmd_tp
+   training microbatch of 4, internvl2's D=64 at H/G 7,
    llama4's 8192-token chunks at H/G 5, grok's H/G 6, ...), each against
    its plain version, its bound and SDPA or ``F.rms_norm``;
 4. reduced granite in fp32 with the same weights on the card (kernels) and
@@ -819,6 +820,10 @@ FAMILY_FLASH = (
     ("whisper-small encoder", 1, 1500, 1500, 12, 12, 64, False, 0),
     ("whisper-small cross-attention, a 64-token prompt", 1, 64, 1500, 12, 12, 64, False, 0),
     ("internvl2-1b, 1024 rows + 64 tokens", 1, 1088, 1088, 14, 2, 64, True, 0),
+    # whisper-small's gspmd_tp training microbatch (8 x 448 at grad_accum 2, GSPMD_RUNS)
+    ("whisper-small training encoder", 4, 1500, 1500, 12, 12, 64, False, 0),
+    ("whisper-small training decoder self-attention", 4, 448, 448, 12, 12, 64, True, 0),
+    ("whisper-small training cross-attention", 4, 448, 1500, 12, 12, 64, False, 0),
     ("llama4-scout chunked-local 8192, 9000 tokens", 1, 9000, 9000, 40, 8, 128, True, 8192),
     ("grok-1, 600 tokens", 1, 600, 600, 48, 8, 128, True, 0),
 )
@@ -5178,7 +5183,7 @@ def phase_train_gspmd(results: dict, warmup: int = 3) -> None:
         add_launches(results, counts, f"train_gspmd_{arch}")
         p, o, b0 = out["params"], out["opt"], held_out
         profile_step(lambda: step_fn(p, o, b0), f"{arch} {meta['strategy']} training step "
-                     f"({batch} x {seq} tokens)", top=8, reps=1)
+                     f"({batch} x {seq} tokens)", top=8, reps=1, share="flash_attention")
         del built, model, params, out, p, o, tr, step_fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -5307,8 +5312,10 @@ BASELINE_LIBS = (("flash_attention", "flash_attention_fwd", "flash_attention"),
 
 def _library_fns(checkout: Path, out: Path) -> dict:
     """The C entry points of BASELINE_LIBS built from ``checkout``'s kernel
-    sources with this checkout's flags into ``out``, typed, and the
-    checkout's own ``split_plan`` (how its decode wrappers cut the span)."""
+    sources with this checkout's flags into ``out``, each typed by the
+    checkout's own wrapper module (its ``_ARGS``), and the checkout's own
+    ``split_plan`` (how its decode wrappers cut the span) and flash module
+    (whose ``split_plan``, where it has one, cuts its D = 64 calls)."""
     import ctypes
     import importlib.util
     from repro_torch.kernels import _build
@@ -5318,6 +5325,12 @@ def _library_fns(checkout: Path, out: Path) -> dict:
                                      str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name, _, _ in BASELINE_LIBS}
+    modules = {}
+    for module in {m for _, _, m in BASELINE_LIBS}:
+        spec = importlib.util.spec_from_file_location(f"_baseline_{module}_{out.name}",
+                                                      csrc.parent / f"{module}.py")
+        modules[module] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(modules[module])
     fns = {}
     for name, entry, module in BASELINE_LIBS:
         text, _ = procs[name].communicate()
@@ -5328,15 +5341,20 @@ def _library_fns(checkout: Path, out: Path) -> dict:
                                                                "spill" in line):
                 log(f"[baseline] {checkout.name}/{name}: {line.strip()[:200]}")
         fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), entry)
-        fn.argtypes = list(importlib.import_module(f"repro_torch.kernels.{module}")._ARGS)
+        fn.argtypes = list(modules[module]._ARGS)
         fn.restype = ctypes.c_int
         fns[name] = fn
-    spec = importlib.util.spec_from_file_location(
-        f"_baseline_decode_{out.name}", csrc.parent / "decode_attention.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    fns["split_plan"] = mod.split_plan
+    fns["split_plan"] = modules["decode_attention"].split_plan
+    fns["flash_module"] = modules["flash_attention"]
     return fns
+
+
+# flash in the baseline phase: (B, T, Tk, H, G, D, causal), granite-8b's and
+# zamba2-7b's shapes, then every D = 64 shape of FAMILY_FLASH
+BASELINE_FLASH = ((2, 1024, 1024, 32, 8, 128, True), (8, 512, 512, 32, 32, 112, True),
+                  (8, 128, 128, 32, 8, 128, True),
+                  *((b, t, tk, h, g, d, causal)
+                    for _, b, t, tk, h, g, d, causal, chunk in FAMILY_FLASH if d == 64))
 
 
 def phase_baseline(baselines: list) -> None:
@@ -5350,7 +5368,8 @@ def phase_baseline(baselines: list) -> None:
     launches', without the Python wrappers; the decode kernels with each
     checkout's own split plan, and with the memset of their merge counters
     before every call where a kernel leaves them nonzero (as the wrapper of
-    such a kernel does)."""
+    such a kernel does); flash at ``BASELINE_FLASH`` with each checkout's
+    own argument types and, where it has one, its own D = 64 split plan."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kfa
@@ -5374,26 +5393,47 @@ def phase_baseline(baselines: list) -> None:
                 f"{c2:.4f} ms (turns: baseline, current, current, baseline); device "
                 f"{device_ms(base):.4f} against {device_ms(cur):.4f} ms")
 
-    for b, t, h, g, d in ((2, 1024, 32, 8, 128), (8, 512, 32, 32, 112), (8, 128, 32, 8, 128)):
-        sets = [tuple(_rand((b, t, n, d), torch.bfloat16, gen) for n in (h, g, g))
-                for _ in range(n_sets(2 * (2 * b * t * h * d + 2 * b * t * g * d)))]
+    def flash_extra(mod, b, t, tk, h, g, d, causal, keep):
+        """The split arguments of a checkout's flash entry, where it takes
+        them: its own ``split_plan`` at D = 64 bf16, with zeroed scratch for
+        a split (kept alive in ``keep``)."""
+        if not hasattr(mod, "split_plan"):
+            return ()
+        n_split = mod.split_plan(b, t, tk, h, g, causal, 0, sms) if d == 64 else 1
+        if n_split == 1:
+            return (1, sms, None, None)
+        units = mod.d64_units(b, t, h, g)
+        part = torch.empty((units * n_split * mod.PART_FLOATS,), device="cuda")
+        counters = torch.zeros((units,), dtype=torch.int32, device="cuda")
+        keep.append((part, counters))
+        return (n_split, sms, part.data_ptr(), counters.data_ptr())
+
+    keep = []                              # scratch the calls point into
+    for b, t, tk, h, g, d, causal in BASELINE_FLASH:
+        shape = f"B={b} T={t} Tk={tk} H={h} G={g} D={d} {'causal' if causal else 'full'} bf16"
+        sets = [tuple(_rand((b, n, m, d), torch.bfloat16, gen)
+                      for n, m in ((t, h), (tk, g), (tk, g)))
+                for _ in range(n_sets(2 * (2 * b * t * h * d + 2 * b * tk * g * d)))]
         outs = [torch.empty_like(a[0]) for a in sets]
+        ref = kfa.flash_attention_plain(*sets[0], causal=causal)
         calls = {}
         for name, fns in libs.items():
-            def call(a, o, fa=fns["flash_attention"], name=name):
+            extra = flash_extra(fns["flash_module"], b, t, tk, h, g, d, causal, keep)
+
+            def call(a, o, fa=fns["flash_attention"], name=name, extra=extra):
                 _build.check(fa(a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), o.data_ptr(),
-                                b, t, t, h, g, d, 1, 0, d ** -0.5, _build.DT_BF16, stream), name)
+                                b, t, tk, h, g, d, int(causal), 0, d ** -0.5, _build.DT_BF16,
+                                *extra, stream), name)
             try:
                 call(sets[0], outs[0])
-                check_close(f"{name} flash B={b} T={t} D={d}", outs[0],
-                            kfa.flash_attention_plain(*sets[0]), BF16_TOL, relative=True)
+                check_close(f"{name} flash {shape}", outs[0], ref, BF16_TOL, relative=True)
             except (RuntimeError, AssertionError) as e:
                 if name == "current":
                     raise
-                log(f"[baseline] {name} flash B={b} T={t} D={d} left out: {e}")
+                log(f"[baseline] {name} flash {shape} left out: {e}")
                 continue
             calls[name] = [lambda a=a, o=o, call=call: call(a, o) for a, o in zip(sets, outs)]
-        turns(f"flash B={b} T={t} H={h} G={g} D={d} causal bf16", calls)
+        turns(f"flash {shape}", calls)
     for rows, d in RMS_SHAPES:
         sets = [(_rand((rows, d), torch.bfloat16, gen),
                  (1 + 0.1 * _rand((d,), torch.float32, gen)).to(torch.bfloat16))

@@ -6,26 +6,32 @@
 // kv-head index (h / (H/G)), fp32 running (m, l, acc), rows with l == 0
 // return 0.
 //
-// Bound on the H100: operations.  At prefill widths (T in the hundreds to
-// thousands, D = 128) each K/V byte staged on chip is used by 64-128 query
-// rows, so the work is far above the card's ~295 flop/B ridge.  The TPU
-// kernel walked K/V tiles as the sequential innermost grid axis with
-// (m, l, acc) in VMEM scratch; Hopper runs CTAs in parallel and in no order,
-// so here one CTA owns a query tile and loops over K/V tiles itself.  Tiles
-// past the causal diagonal or outside the chunk band are never loaded; the
-// ragged T / Tk edges are masked in the kernel, so the caller pads nothing.
-// Query tiles are issued longest-first so causal work balances across SMs.
+// Bound on the H100: operations at prefill widths (T in the hundreds to
+// thousands), where each K/V byte staged on chip is used by 64-128 query
+// rows, far above the card's ~295 flop/B ridge; bytes where few query rows
+// meet many keys (whisper-small's cross-attention at a short prompt: 64
+// queries over 1500 frames).  The TPU kernel walked K/V tiles as the
+// sequential innermost grid axis with (m, l, acc) in VMEM scratch; Hopper
+// runs CTAs in parallel and in no order, so here one CTA owns a query tile
+// and loops over K/V tiles itself -- or over a slice of them, when the
+// query tiles are too few to fill the card and the D = 64 body cuts their
+// key ranges (the slices' partials merged by the last CTA).  Tiles past the
+// causal diagonal or outside the chunk band are never loaded; the ragged
+// T / Tk edges are masked in the kernel, so the caller pads nothing.  Query
+// tiles are issued longest-first so causal work balances across SMs.
 //
 // Head dims 32, 64, 112 (zamba2-7b's shared block: 3584 / 32 heads) and 128.
 //
-// Three bodies:
-// * bf16 at D = 112 and 128 (every ported model: granite-8b's prefill,
-//   zamba2-7b's shared block) -- built the Hopper way, below
-//   (flash_attention_wgmma);
-// * bf16 at D = 32 and 64 (no ported model; the tests cover them): tensor
-//   cores through mma.sync m16n8k16, the FlashAttention-2 register layout --
-//   each of 4 warps owns 16 rows of a 64-row query tile, K is staged
-//   row-major and V transposed in padded shared memory;
+// Four bodies:
+// * bf16 at D = 112 and 128 (granite-8b's prefill, zamba2-7b's shared
+//   block) -- TMA ring, warp specialisation, wgmma (flash_attention_wgmma);
+// * bf16 at D = 64 (whisper-small, internvl2-1b) -- TMA ring, wgmma with
+//   m64n64 products, a CTA sized for the shape and a split key range
+//   (flash_attention_d64);
+// * bf16 at D = 32, which no model runs (the tests cover it): mma.sync
+//   m16n8k16 in the FlashAttention-2 register layout -- each of 4 warps
+//   owns 16 rows of a 64-row query tile, K is staged row-major and V
+//   transposed in padded shared memory;
 // * fp32: scalar FMA on fp32 tiles in shared memory (each thread a 4x8
 //   block of the score tile and a 4 x D/8 block of the output), for the
 //   fp32 parity runs.
@@ -189,7 +195,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core body
+// bf16 tensor-core body on mma.sync, D = 32 only
 // ---------------------------------------------------------------------------
 
 using hopper::mma_bf16;
@@ -421,17 +427,20 @@ constexpr int FW_KV_BOX = FW_BK * 128;            // one 64-col box of a K or V 
 constexpr int FW_STAGE_BYTES = 4 * FW_KV_BOX;     // K and V, 2 column boxes each
 constexpr size_t FW_SMEM = 1024 + FW_Q_BYTES + (size_t)FW_STAGES * FW_STAGE_BYTES;
 
-// a position in the K/V ring: the stage, and the parity of its barriers' phase
-struct Ring {
+// a position in a K/V ring of STAGES stages: the stage, and the parity of
+// its barriers' phase
+template <int STAGES>
+struct RingPos {
   int stage = 0;
   uint32_t phase = 0;
   __device__ __forceinline__ void advance() {
-    if (++stage == FW_STAGES) {
+    if (++stage == STAGES) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
+using Ring = RingPos<FW_STAGES>;
 
 using hopper::ex2;
 
@@ -725,6 +734,424 @@ static cudaError_t launch_wgmma(const void* q, const void* k, const void* v, voi
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body at D = 64: TMA ring, wgmma, a split key range
+// ---------------------------------------------------------------------------
+//
+// What bounds it: at whisper-small's encoder (T = Tk = 1500, 12 heads) and
+// internvl2-1b's prefill (1088 rows, causal) the work is operations, and at
+// D = 64 the softmax's exponentials (one MUFU.EX2 a score, 16 a clock an SM)
+// cost about as much as the two products on the tensor cores; at whisper's
+// cross-attention with a short prompt (T = 64 queries over Tk = 1500 frames)
+// it is bytes, a stream over K and V with 12 query tiles to read it.
+//
+// A CTA is one consumer warpgroup and one producer warp (160 threads), and
+// three CTAs share an SM, so one CTA's softmax overlaps another's products
+// and the query tiles are small enough to balance.  (Two and three consumer
+// warpgroups a CTA over one ring, 128-key tiles, and two CTAs an SM with a
+// 3-stage ring all measured slower at every path's shape on the H100:
+// `chip_smoke.py --phases build,baseline`, PERF.md.)
+// One elected producer thread issues every TMA load: the Q tile, then a ring
+// of D64_STAGES stages of 64-key K and V tiles, 128-byte swizzled and guarded
+// by mbarriers.  At D = 64 a row is one 128-byte swizzle span, so Q, K and V
+// are one box each.  The consumer owns 64 query rows and runs, per tile,
+//   S (64 x 64) = Q (64 x 64) . K^T, SS wgmma over 4 k-steps, both K-major;
+//   O (64 x 64) += P (64 x 64, bf16 in registers) . V, RS wgmma m64n64k16,
+//   V read MN-major through the transpose bit, so no thread transposes V.
+// O is 32 fp32 registers a thread, so nothing asks for setmaxnreg: the whole
+// CTA fits in the 136 registers a thread that three CTAs an SM leave.  The
+// consumer pipelines its tiles as the D = 112/128 body does (S(i) and
+// P(i-1).V(i-1) issued together, the softmax of tile i while the second
+// product runs).  Softmax as there: masks on edge tiles only (the causal
+// diagonal, chunk edges, the ragged Tk), 2^x of s * scale * log2(e) -
+// m * scale * log2(e) as one FMA, O rescaled only when a row of the warp
+// raised its max; a row with nothing live keeps l = O = 0 and returns 0.
+//
+// Query heads: the nh = 4, 2 or 1 query heads of one KV head (the largest
+// that divides H / G) share the consumer's 64 rows (64 / nh positions x nh
+// heads, row m = position * nh + head), so one staged K/V tile serves them
+// all.  whisper-small (H / G = 1) and internvl2-1b (H / G = 7) take nh = 1.
+//
+// Order: the (query tile, head group, batch) units are ranked longest
+// first (the last query tiles of a causal call see the most keys).  Where
+// the mask makes them differ, the grid hands them out in rounds of `wave`
+// CTAs (the SM count), every other round reversed, so the CTAs that share
+// an SM pair long units with short ones (internvl2-1b's prefill on the
+// H100: 0.0137 -> 0.0129 ms of device time); an unmasked call's units are
+// equal and go in order (wave = all of them).
+//
+// The split (kernels/flash_attention.py: split_plan): where the units are
+// fewer than the SMs, each one's live key tiles [t_lo, t_lo + n_tiles) are
+// cut into n_split slices of `per` tiles (split_slices there mirrors this
+// arithmetic), the slice index the grid's y; a CTA whose slice would be
+// empty exits at once.  With more than one slice, each CTA leaves its fp32
+// partial (per thread: its 32 O accumulators and the (m, l) of its two rows,
+// in thread order so the writes and reads are whole float4s of neighbouring
+// threads) in the wrapper's scratch and counts itself on its unit's counter
+// (acquire-release, at gpu scope); the last CTA to count merges every slice
+// in slice order, so the result is the same whichever CTA merges, writes the
+// output and returns the counter to 0.  The wrapper therefore never clears
+// the counters; the kernel allocates nothing.
+
+constexpr int D64_BK = 64;                                // keys a K/V tile
+constexpr int D64_STAGES = 4;
+constexpr int D64_THREADS = 160;                          // a consumer warpgroup + a producer warp
+constexpr int D64_CTAS_PER_SM = 3;
+constexpr int D64_BOX = 64 * 128;                         // 64 rows x 64 bf16: Q, K or V
+constexpr int D64_STAGE_BYTES = 2 * D64_BOX;              // K, then V
+constexpr int D64_SN = D64_BK / 8;                        // 8-key column groups of S
+constexpr int D64_PK = D64_BK / 16;                       // k-steps of P.V
+constexpr int D64_PART_F4 = 9;                            // float4s a thread leaves in a slot
+constexpr size_t D64_SMEM = 1024 + D64_BOX + (size_t)D64_STAGES * D64_STAGE_BYTES;
+
+__global__ void __launch_bounds__(D64_THREADS, D64_CTAS_PER_SM)
+    flash_attention_d64(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap omap, int T_q, int T_k, int rep,
+                        int n_hg, int n_b, int causal, int chunk, float scale_log2, int nh_log2,
+                        int wave, float4* __restrict__ part, int* __restrict__ counters) {
+  using namespace hopper;
+  using RingD64 = RingPos<D64_STAGES>;
+  extern __shared__ uint8_t d64_smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[D64_STAGES], empty[D64_STAGES];
+  __shared__ int s_last;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(d64_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQ = smem;                                     // Q, then O on its way out
+  uint8_t* sKV = smem + D64_BOX;                          // stage s: K box, then V box
+
+  // this CTA's unit: rounds of `wave`, every other one reversed
+  const int n_units = gridDim.x, r = blockIdx.x;
+  const int rnd = r / wave, rnd_len = min(wave, n_units - rnd * wave);
+  const int unit = rnd & 1 ? rnd * wave + rnd_len - 1 - r % wave : r;
+  const int rows_w = 64 >> nh_log2;                       // query positions a CTA
+  const int iq = (T_q + rows_w - 1) / rows_w - 1 - unit / (n_hg * n_b);   // longest first
+  const int hb = (unit % n_hg) << nh_log2, b = unit / n_hg % n_b;
+  const int g = hb / rep;
+  const int n_split = gridDim.y, split = blockIdx.y;
+  const int q0 = iq * rows_w;
+  const int q_last = min(q0 + rows_w, T_q) - 1;
+  int k_lo, k_hi, full_lo, full_hi;
+  key_range(q0, T_k, causal, chunk, k_lo, full_hi);
+  key_range(q_last, T_k, causal, chunk, full_lo, k_hi);
+  const int kt0 = (k_lo / D64_BK) * D64_BK;
+  const int n_tiles = k_hi > kt0 ? (k_hi - kt0 + D64_BK - 1) / D64_BK : 0;
+  // this CTA's slice [s_lo, s_hi) of the n_tiles (flash_attention.py: split_slices)
+  const int per = n_tiles > 0 ? (n_tiles + n_split - 1) / n_split : 0;
+  const int n_items = n_tiles > 0 ? (n_tiles + per - 1) / per : 1;
+  if (split >= n_items) return;                           // the whole CTA, before any barrier
+  const int s_lo = split * per, s_hi = min(n_tiles, s_lo + per);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < D64_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);                            // the consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer ---------------------------------------------------------
+    if (threadIdx.x == 128) {
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      mbar_expect_tx(&q_full, D64_BOX);
+      tma_load_4d(sQ, &qmap, &q_full, 0, hb, q0, b);
+      RingD64 ring;
+      for (int i = s_lo; i < s_hi; ++i, ring.advance()) {
+        mbar_wait(&empty[ring.stage], ring.phase ^ 1);    // the first round passes at once
+        uint8_t* st = sKV + ring.stage * D64_STAGE_BYTES;
+        const int k0 = kt0 + i * D64_BK;
+        mbar_expect_tx(&full[ring.stage], D64_STAGE_BYTES);
+        tma_load_4d(st, &kmap, &full[ring.stage], 0, g, k0, b);
+        tma_load_4d(st + D64_BOX, &vmap, &full[ring.stage], 0, g, k0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer -----------------------------------------------------------
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int t4 = lane % 4;
+  const int m0 = warp * 16 + lane / 4, m1 = m0 + 8;       // this thread's two rows
+  // per-row live key ranges; [full_lo, full_hi) above: the keys no row masks
+  int lo0, hi0, lo1, hi1;
+  key_range(q0 + (m0 >> nh_log2), T_k, causal, chunk, lo0, hi0);
+  key_range(q0 + (m1 >> nh_log2), T_k, causal, chunk, lo1, hi1);
+  // a positive factor leaves the running max in raw units; otherwise the
+  // scores are scaled first
+  const bool prescale = !(scale_log2 > 0.f);
+  const float f = prescale ? 1.f : scale_log2;
+
+  const uint32_t aQ = smem_u32(sQ);
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float mr0 = -INFINITY, mr1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  };
+  // S = Q.K^T of the tile in `stage`: 16 columns (32 bytes of a row) a k-step
+  auto issue_s = [&](float (&sc)[4 * D64_SN], int stage) {
+    const uint32_t aK = smem_u32(sKV + stage * D64_STAGE_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_ss(sc, desc_sw128(aQ + kk * 32, 16, 1024),
+                         desc_sw128(aK + kk * 32, 16, 1024), kk > 0);
+  };
+  // O += P.V of the tile in `stage`, 16 keys (2048 bytes of V) a k-step
+  auto issue_pv = [&](const uint32_t (&pa)[D64_PK][4], int stage) {
+    const uint32_t aV = smem_u32(sKV + stage * D64_STAGE_BYTES) + D64_BOX;
+#pragma unroll
+    for (int kk = 0; kk < D64_PK; ++kk)
+      wgmma_m64n64k16_rs_tb(o, pa[kk], desc_sw128(aV + kk * 2048, D64_BOX, 1024));
+  };
+  // scores of the tile at key k0 -> probabilities in place, (m, l) updated;
+  // c0, c1 rescale the rows' O
+  auto softmax = [&](float (&sc)[4 * D64_SN], int k0, float& c0, float& c1) {
+    if (prescale) {
+#pragma unroll
+      for (int j = 0; j < 4 * D64_SN; ++j) sc[j] *= scale_log2;
+    }
+    if (!(k0 >= full_lo && k0 + D64_BK <= full_hi)) {    // an edge tile
+#pragma unroll
+      for (int n = 0; n < D64_SN; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + n * 8 + t4 * 2 + e;
+          if (!(kp >= lo0 && kp < hi0)) sc[4 * n + e] = -INFINITY;
+          if (!(kp >= lo1 && kp < hi1)) sc[4 * n + 2 + e] = -INFINITY;
+        }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < D64_SN; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(mr0, mx0), mn1 = fmaxf(mr1, mx1);
+    // a row with nothing live yet keeps l = O = 0 (exp2(-inf) = 0)
+    const float b0 = mn0 == -INFINITY ? 0.f : mn0 * f;
+    const float b1 = mn1 == -INFINITY ? 0.f : mn1 * f;
+    c0 = mr0 == -INFINITY ? 0.f : ex2(fmaf(mr0, f, -b0));
+    c1 = mr1 == -INFINITY ? 0.f : ex2(fmaf(mr1, f, -b1));
+    mr0 = mn0;
+    mr1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < D64_SN; ++n) {
+      sc[4 * n] = ex2(fmaf(sc[4 * n], f, -b0));
+      sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], f, -b0));
+      sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], f, -b1));
+      sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], f, -b1));
+      sum0 += sc[4 * n] + sc[4 * n + 1];
+      sum1 += sc[4 * n + 2] + sc[4 * n + 3];
+    }
+    l0 = l0 * c0 + sum0;                                  // per-thread partial row sums
+    l1 = l1 * c1 + sum1;
+  };
+  auto to_bf16 = [&](const float (&sc)[4 * D64_SN], uint32_t (&pa)[D64_PK][4]) {
+#pragma unroll
+    for (int kk = 0; kk < D64_PK; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
+
+  RingD64 ring;
+  mbar_wait(&q_full, 0);
+  if (s_hi > s_lo) {
+    // Software pipeline: P(i-1).V(i-1) runs on the tensor cores while this
+    // warpgroup computes the softmax of tile i; no wgmma is issued on a
+    // branch inside the loop.
+    uint32_t pa[D64_PK][4];                               // P of the previous tile, bf16
+    float sc[4 * D64_SN], c0, c1;
+    mbar_wait(&full[ring.stage], ring.phase);
+    wg_fence();
+    issue_s(sc, ring.stage);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    softmax(sc, kt0 + s_lo * D64_BK, c0, c1);             // O is 0: nothing to rescale
+    to_bf16(sc, pa);
+    int prev = ring.stage;
+    ring.advance();
+    for (int i = s_lo + 1; i < s_hi; ++i, ring.advance()) {
+      mbar_wait(&full[ring.stage], ring.phase);
+      wg_fence();
+      issue_s(sc, ring.stage);
+      wg_commit();
+      issue_pv(pa, prev);
+      wg_commit();
+      wg_wait<1>();                                       // S done; P.V may still run
+      fence_regs(sc);
+      softmax(sc, kt0 + i * D64_BK, c0, c1);
+      wg_wait<0>();                                       // P(i-1).V(i-1) done: O is ours
+      fence_regs(o);
+      release(prev);
+      if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[4 * n] *= c0;
+          o[4 * n + 1] *= c0;
+          o[4 * n + 2] *= c1;
+          o[4 * n + 3] *= c1;
+        }
+      }
+      to_bf16(sc, pa);
+      prev = ring.stage;
+    }
+    wg_fence();                                           // the last tile's P.V
+    issue_pv(pa, prev);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    release(prev);
+  }
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  if (n_items > 1) {
+    // ---- split: leave this slice's partial; the last CTA merges them all ----
+    const size_t stride = (size_t)D64_PART_F4 * 128;      // float4s of a slot
+    const float4* slots = part + (size_t)r * n_split * stride + tid;
+    float4* mine = part + ((size_t)r * n_split + split) * stride + tid;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mine[j * 128] = make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+    mine[8 * 128] = make_float4(mr0, l0, mr1, l1);
+    __threadfence();
+    named_barrier(1, 128);
+    if (tid == 0) {
+      // release this CTA's partial (ordered by the fences and the barrier),
+      // acquire the others' if this is the last CTA of the unit
+      int prev;
+      asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+                   : "=r"(prev)
+                   : "l"(&counters[r])
+                   : "memory");
+      const int last = prev == n_items - 1;
+      if (last) counters[r] = 0;                          // every slice has counted
+      s_last = last;
+    }
+    named_barrier(1, 128);
+    if (!s_last) return;
+    __threadfence();
+    // every slice in slice order, this CTA's own from its registers (the
+    // same values it wrote): the sums do not depend on which CTA merges
+    float acc[32], ma0 = -INFINITY, ma1 = -INFINITY, la0 = 0.f, la1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int sp = 0; sp < n_items; ++sp) {
+      float os[32], ms0, ls0, ms1, ls1;
+      if (sp == split) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) os[i] = o[i];
+        ms0 = mr0, ls0 = l0, ms1 = mr1, ls1 = l1;
+      } else {
+        const float4* src = slots + sp * stride;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 x = __ldcg(src + j * 128);
+          os[4 * j] = x.x, os[4 * j + 1] = x.y, os[4 * j + 2] = x.z, os[4 * j + 3] = x.w;
+        }
+        const float4 x = __ldcg(src + 8 * 128);
+        ms0 = x.x, ls0 = x.y, ms1 = x.z, ls1 = x.w;
+      }
+      // a slice with no live key for a row adds nothing to it
+      if (ms0 != -INFINITY) {
+        const float mn = fmaxf(ma0, ms0);
+        const float c = ex2((ma0 - mn) * f), w = ex2((ms0 - mn) * f);   // ex2(-inf) = 0
+        la0 = la0 * c + ls0 * w;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          acc[4 * n] = acc[4 * n] * c + os[4 * n] * w;
+          acc[4 * n + 1] = acc[4 * n + 1] * c + os[4 * n + 1] * w;
+        }
+        ma0 = mn;
+      }
+      if (ms1 != -INFINITY) {
+        const float mn = fmaxf(ma1, ms1);
+        const float c = ex2((ma1 - mn) * f), w = ex2((ms1 - mn) * f);
+        la1 = la1 * c + ls1 * w;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          acc[4 * n + 2] = acc[4 * n + 2] * c + os[4 * n + 2] * w;
+          acc[4 * n + 3] = acc[4 * n + 3] * c + os[4 * n + 3] * w;
+        }
+        ma1 = mn;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = acc[i];
+    l0 = la0;
+    l1 = la1;
+  }
+
+  // ---- epilogue: O / l in bf16 into the Q tile, TMA store ------------------
+  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    uint8_t* box = sQ + t4 * 4;
+    *reinterpret_cast<uint32_t*>(box + m0 * 128 + ((n ^ (m0 & 7)) << 4)) =
+        pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(box + m1 * 128 + ((n ^ (m1 & 7)) << 4)) =
+        pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+  }
+  fence_proxy_async();
+  named_barrier(2, 128);
+  if (tid == 0) {
+    tma_store_4d(&omap, sQ, 0, hb, q0, b);
+    tma_store_commit_and_wait();
+  }
+}
+
+static cudaError_t launch_d64(const void* q, const void* k, const void* v, void* out, int B,
+                              int T_q, int T_k, int H, int G, int causal, int chunk, float scale,
+                              int n_split, int n_sms, void* part, void* counters,
+                              cudaStream_t st) {
+  const int rep = H / G;
+  const int nh_log2 = rep % 4 == 0 ? 2 : rep % 2 == 0 ? 1 : 0;
+  const uint32_t nh = 1u << nh_log2, rows_w = 64u >> nh_log2;
+  const long long units = (long long)((T_q + rows_w - 1) / rows_w) * (H >> nh_log2) * B;
+  if (units > 0x7fffffff || n_split < 1 || n_split > 65535 || n_sms < 1 ||
+      (n_split > 1 && (part == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, om;
+  if (!hopper::encode_bf16_4d(&qm, q, 64, H, T_q, B, nh, rows_w) ||
+      !hopper::encode_bf16_4d(&om, out, 64, H, T_q, B, nh, rows_w) ||
+      !hopper::encode_bf16_4d(&km, k, 64, G, T_k, B, 1, D64_BK) ||
+      !hopper::encode_bf16_4d(&vm, v, 64, G, T_k, B, 1, D64_BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_d64,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)D64_SMEM);
+  if (err == cudaSuccess)     // three CTAs an SM take 3 x 74 KB of shared memory
+    err = cudaFuncSetAttribute(flash_attention_d64,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)units, n_split);
+  flash_attention_d64<<<grid, D64_THREADS, D64_SMEM, st>>>(
+      qm, km, vm, om, T_q, T_k, rep, H >> nh_log2, B, causal, chunk, scale * hopper::LOG2E,
+      nh_log2, causal || chunk > 0 ? n_sms : (int)units, static_cast<float4*>(part),
+      static_cast<int*>(counters));
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 static cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int T_q,
                           int T_k, int H, int G, int causal, int chunk, float scale,
@@ -753,27 +1180,35 @@ static cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v
   }
 }
 
+// n_split (split_plan) and n_sms are for the bf16 D = 64 body; with
+// n_split > 1, `part` holds n_split fp32 partials of 9 x 128 float4s for
+// every (query tile, head group, batch) unit and `counters` one int a unit,
+// all 0 (the kernel leaves them so).  Other bodies ignore the four.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
                                    int T_q, int T_k, int H, int G, int D, int causal, int chunk,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, int dtype, int n_split, int n_sms, void* part,
+                                   void* counters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T_q <= 0 || T_k <= 0 || G <= 0 || H % G != 0 || H > 65535 || B > 65535 ||
       chunk < 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == DT_BF16) {
-    dim3 grid((T_q + FA_BQ - 1) / FA_BQ, H, B);
-    const __nv_bfloat16 *qb = static_cast<const __nv_bfloat16*>(q),
-                        *kb = static_cast<const __nv_bfloat16*>(k),
-                        *vb = static_cast<const __nv_bfloat16*>(v);
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
     switch (D) {
-      case 32: flash_attention_tc_kernel<32><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
-      case 64: flash_attention_tc_kernel<64><<<grid, FA_THREADS, 0, st>>>(qb, kb, vb, ob, T_q, T_k, H, G, causal, chunk, scale); break;
+      case 32: {
+        dim3 grid((T_q + FA_BQ - 1) / FA_BQ, H, B);
+        flash_attention_tc_kernel<32><<<grid, FA_THREADS, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+            static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), T_q, T_k, H,
+            G, causal, chunk, scale);
+        return (int)cudaGetLastError();
+      }
+      case 64:
+        return (int)launch_d64(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, n_split,
+                               n_sms, part, counters, st);
       case 112: return (int)launch_wgmma<112>(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);
       case 128: return (int)launch_wgmma<128>(q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);
       default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
   }
   if (dtype == DT_F32)
     return (int)dispatch_d<float>(D, q, k, v, out, B, T_q, T_k, H, G, causal, chunk, scale, st);

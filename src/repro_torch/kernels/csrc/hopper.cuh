@@ -2,9 +2,9 @@
 // stores, wgmma descriptors and products, register hand-off between
 // warpgroups, and the host-side tensor-map encoder.  Shared by the kernels
 // built the Hopper way: a TMA ring guarded by mbarriers, a producer
-// warpgroup, consumer warpgroups on wgmma.  Also the warp-level mma.sync
-// product and its fragment loads, shared by the decode body, flash's
-// mma.sync body and the chunked scans (WKV6, SSD).
+// warpgroup or warp, consumer warpgroups on wgmma.  Also the warp-level
+// mma.sync product and its fragment loads, shared by the decode body,
+// flash's mma.sync body (D = 32) and the chunked scans (WKV6, SSD).
 #pragma once
 
 #include <cuda.h>          // CUtensorMap and its enums only: no libcuda symbol is linked
@@ -183,6 +183,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
       : HOPPER_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 in registers) . B (16 x 64) read
+// MN-major from shared memory, as above
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

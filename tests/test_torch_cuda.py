@@ -92,6 +92,27 @@ def test_rmsnorm_kernel(cuda_device, dtype, rows, d):
     (1, 100, 32, 4, 128, True, 0),      # H / G = 8: two 4-head groups a KV head
     # zamba2's shared-block prefill as served: one request at its exact length
     (1, 300, 32, 32, 112, True, 0), (1, 37, 32, 32, 112, True, 0),
+    # the D = 64 body: few CTAs split the key range (T 1-65 over Tk 1500)
+    (1, (1, 1500), 12, 12, 64, False, 0),
+    (2, (17, 1500), 12, 12, 64, False, 0),
+    (1, (64, 1500), 12, 12, 64, False, 0),
+    (1, (65, 1500), 12, 12, 64, False, 0),
+    (1, (40, 1500), 14, 2, 64, False, 0),
+    (1, (65, 1500), 12, 12, 64, True, 0),
+    # ragged T and Tk, and causal with Tk > T
+    (1, (77, 300), 8, 2, 64, True, 0),
+    (2, (300, 77), 4, 4, 64, False, 0),
+    (1, (100, 333), 14, 2, 64, False, 0),
+    (1, 1000, 12, 12, 64, False, 0),
+    # chunks of 48 and 64
+    (1, 300, 8, 8, 64, True, 48),
+    (2, 200, 14, 2, 64, True, 64),
+    (1, (130, 500), 4, 4, 64, False, 48),
+    # H / G 1, 2, 4 and 7 (query heads sharing a consumer's 64 rows: 1, 2, 4, 1)
+    (1, 130, 4, 4, 64, True, 0),
+    (1, 150, 8, 4, 64, True, 0),
+    (2, 100, 16, 4, 64, True, 0),
+    (1, 129, 14, 2, 64, True, 0),
 ])
 def test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk):
     t, tk = t if isinstance(t, tuple) else (t, t)   # (T, Tk) where they differ
@@ -114,9 +135,30 @@ def test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk):
     (1, 8192, 40, 8, 128, True, 8192),          # exactly one chunk
     (1, 600, 48, 8, 128, True, 0),              # grok-1: H/G 6
     (2, 130, 48, 8, 128, True, 0),
+    (1, (64, 1500), 12, 12, 64, False, 0),      # whisper's cross-attention, a 64-token prompt
+    (4, 1500, 12, 12, 64, False, 0),            # whisper's training microbatch: encoder,
+    (4, 448, 12, 12, 64, True, 0),              # decoder self-attention
+    (4, (448, 1500), 12, 12, 64, False, 0),     # and cross-attention
 ])
 def test_flash_kernel_at_the_families_shapes(cuda_device, dtype, b, t, h, g, d, causal, chunk):
     test_flash_kernel(cuda_device, dtype, b, t, h, g, d, causal, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_row_with_no_live_key(cuda_device, dtype, d):
+    """Chunks of 64 over 200 queries and 100 keys: queries 128-199 lie in a
+    chunk that holds no key, and every body returns 0 for them (l == 0).
+    The plain version's finite -1e30 mask gives such a row a uniform softmax
+    over the keys instead, so the rows with a live key are held to it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = _rand(gen, dtype, 1, 200, 8, d), _rand(gen, dtype, 1, 100, 2, d), \
+        _rand(gen, dtype, 1, 100, 2, d)
+    got = kfa.flash_attention_cuda(q, k, v, causal=True, chunk=64)
+    _assert_close(got[:, :128], kfa.flash_attention_plain(q, k, v, causal=True, chunk=64)[:, :128],
+                  dtype)
+    assert (got[:, 128:] == 0).all()
 
 
 @pytest.mark.cuda
@@ -285,6 +327,30 @@ def test_decode_scratch_large_small_large(cuda_device):
                       kpaged.paged_decode_attention_plain(*args, d ** -0.5), dtype)
         torch.cuda.synchronize()
         assert not _scratch_counters(q).any()
+
+
+@pytest.mark.cuda
+def test_flash_split_calls_repeat_and_leave_counters_at_zero(cuda_device):
+    """Flash's D = 64 body at whisper's cross-attention (12 query tiles over
+    1500 keys: the key range cut into slices) merges through the scratch the
+    decode wrappers keep: back-to-back calls, with a decode call between
+    them on the same scratch, give bit-equal outputs (the merge's order does
+    not depend on which CTA merges) and leave every counter at 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    dtype = torch.bfloat16
+    q, k, v = _rand(gen, dtype, 1, 64, 12, 64), _rand(gen, dtype, 1, 1500, 12, 64), \
+        _rand(gen, dtype, 1, 1500, 12, 64)
+    assert kfa.split_plan(1, 64, 1500, 12, 12, False, 0, kdec.n_sms(cuda_device)) > 1
+    outs = [kfa.flash_attention_cuda(q, k, v, causal=False) for _ in range(2)]
+    dq, dk, dv = _rand(gen, dtype, 8, 1, 12, 64), _rand(gen, dtype, 8, 1500, 12, 64), \
+        _rand(gen, dtype, 8, 1500, 12, 64)
+    kdec.decode_attention_cuda(dq, dk, dv, torch.ones((8, 1500), dtype=torch.bool,
+                                                      device=cuda_device), 0.125)
+    outs.append(kfa.flash_attention_cuda(q, k, v, causal=False))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    assert not _scratch_counters(q).any()
+    _assert_close(outs[0], kfa.flash_attention_plain(q, k, v, causal=False), dtype)
 
 
 @pytest.mark.cuda
