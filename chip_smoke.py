@@ -95,7 +95,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    periods of its shared block; the whole model's params, grads and
    moments do not fit one card), bf16, trained 10 steps the same way, no
    checkpoint; step time, tok/s, MFU, peak memory and a profile of a step
-   (the SSD, flash and RMSNorm backwards read from their spans);
+   (the SSD, flash and RMSNorm backwards, and the step's forward and
+   AdamW, read from their spans);
 14. ``resnet``: ResNet-34 (the paper's §4.1 model) at 224 px in fp32: the
    forward, loss and every gradient on the card against the CPU on one set
    of params; the calibrated reproduction table of the paper's appendix
@@ -4466,7 +4467,7 @@ def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
     rows, spans = profile_step(one_step, f"zamba2-7b {n_layers}-layer training step, 8 x 512 "
                                f"tokens", top=12, reps=1,
                                spans=("mamba2_ssd_backward", "flash_attention_backward",
-                                      "rmsnorm_backward"))
+                                      "rmsnorm_backward", "train.forward", "train.adamw"))
     busy = sum(r[0] for r in rows) / 1e3
     fwd = sum(r[0] for r in rows if "ssd_kernel" in r[2]) / 1e3
     flash = sum(r[0] for r in rows if "flash_attention" in r[2]) / 1e3
@@ -4488,6 +4489,13 @@ def phase_train_hybrid(results: dict, n_layers: int = 42, n_steps: int = 10,
         f"({fa_us / 1e3 / fa_n:.2f} ms each); the RMSNorm forward kernel {rms_fwd:.2f} ms, its "
         f"backward (span rmsnorm_backward) {rms_us / 1e3:.1f} ms over {rms_n} entries; cuBLAS "
         f"GEMMs {gemm:.1f} ms")
+    # the backward's kernels are launched from autograd's own threads, which a
+    # span of the main thread (train.backward) does not hold in key_averages
+    fwd_ms, adamw_ms = spans["train.forward"][0] / 1e3, spans["train.adamw"][0] / 1e3
+    log(f"[train-hybrid] the step's parts by the device time of the kernels launched in their "
+        f"spans: forward {fwd_ms:.1f} ms, AdamW {adamw_ms:.1f} ms ({100 * adamw_ms / busy:.1f}% "
+        f"of the step's {busy:.1f} ms), the rest (the backward with remat's recomputation) "
+        f"{busy - fwd_ms - adamw_ms:.1f} ms")
 
 
 # ---------------------------------------------------------------------------

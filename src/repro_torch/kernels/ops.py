@@ -11,9 +11,11 @@ plain version,
 recomputed from the saved inputs (the reference's oracle-AD backward,
 ``repro/kernels/ops.py``); without grad mode, or when no input requires
 grad, they call the kernel directly, so serving pays no autograd cost.
-Each backward runs inside a ``torch.profiler.record_function`` span,
+Each backward runs inside a span (:func:`repro_torch.runtime.spans.span`),
 ``flash_attention_backward``, ``rmsnorm_backward``, ``rwkv6_backward`` and
-``mamba2_ssd_backward``, so a profile reads its device time within a step.
+``mamba2_ssd_backward``, so a profile reads its device time within a step;
+with no profiler recording, a span enters no ``record_function`` and costs
+a check of the profiler's state.
 The decode and paged kernels serve only: they raise if an input requires
 grad while grad mode is on, so no gradient is dropped silently.  On CPU
 tensors the plain versions are differentiable as they are.
@@ -35,6 +37,7 @@ from repro_torch.kernels import mamba2_ssd as _ssd
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import rwkv6_scan as _rwkv
+from repro_torch.runtime.spans import span
 
 _COUNTED = {"flash_attention": _fa, "decode_attention": _dec,
             "paged_decode_attention": _paged, "rmsnorm": _rms, "rwkv6_scan": _rwkv,
@@ -71,7 +74,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         plain = lambda q, k, v: _fa.flash_attention_plain(q, k, v, **ctx.opts)
-        with torch.profiler.record_function("flash_attention_backward"):
+        with span("flash_attention_backward"):
             return _plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], g) \
                 + (None, None, None)
 
@@ -86,7 +89,7 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         plain = lambda x, s: _rms.rmsnorm_plain(x, s, ctx.eps)
-        with torch.profiler.record_function("rmsnorm_backward"):
+        with span("rmsnorm_backward"):
             return _plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], g) + (None,)
 
 
@@ -98,7 +101,7 @@ class _RWKV6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.profiler.record_function("rwkv6_backward"):
+        with span("rwkv6_backward"):
             return _plain_vjp(_rwkv.rwkv6_chunked_plain, ctx.saved_tensors,
                               ctx.needs_input_grad, g)
 
@@ -115,7 +118,7 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, _gstate):
-        with torch.profiler.record_function("mamba2_ssd_backward"):
+        with span("mamba2_ssd_backward"):
             return _plain_vjp(lambda *a: _ssd.mamba2_ssd_chunked_plain(*a)[0],
                               ctx.saved_tensors, ctx.needs_input_grad, gy)
 

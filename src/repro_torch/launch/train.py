@@ -39,20 +39,27 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.api import Model, build_model
 from repro_torch.optim import adamw
+from repro_torch.runtime.spans import span
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
 def make_step_fn(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
     """step_fn(params, opt, batch) -> (params, opt, metrics): the loss and
-    its gradient by autograd, then one AdamW update (in place)."""
+    its gradient by autograd, then one AdamW update (in place).  Each part
+    is a span (:mod:`repro_torch.runtime.spans`): ``train.forward``,
+    ``train.backward`` (remat's recomputation and the kernels' backward
+    spans inside it) and ``train.adamw``."""
 
     def step_fn(params, opt, batch):
         flat = list(leaves(params))
         for p in flat:                       # restored leaves come back without grad
             p.requires_grad_(True)
-        loss, _ = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, flat)
-        params, opt, stats = adamw.update(opt_cfg, unflatten(params, grads), opt, params)
+        with span("train.forward"):
+            loss, _ = model.loss(params, batch)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, flat)
+        with span("train.adamw"):
+            params, opt, stats = adamw.update(opt_cfg, unflatten(params, grads), opt, params)
         return params, opt, dict(loss=loss.detach(), **stats)
 
     return step_fn

@@ -31,10 +31,18 @@ take the exact-length per-request prefill.
 
 Sampling is per request (:class:`~repro_torch.serving.sampling.SamplingParams`),
 and a :class:`~repro_torch.serving.metrics.MetricsCollector` keeps TTFT / TPOT /
-throughput / utilisation accounting.  The engine never owns a run loop
-beyond :meth:`ServeEngine.run_until_drained`; ``inject``, ``preempt(slot,
-requeue=False)``, ``forget_lane`` and ``pull_queued`` are the hooks a fleet
-uses.  Tensors go to the model's device (``cuda`` unless built otherwise).
+throughput / utilisation accounting, and the host time of the step's phases:
+each is a span (:mod:`repro_torch.runtime.spans`) that lands in a profiler's
+trace while one records.  ``engine.step`` is tiled by ``engine.prepare``
+(the lanes' growth, twice, and the step's token array), ``engine.admit``
+(``engine.schedule``: the queue, the reservations and the split into
+restores, hits and prefills; ``engine.prefill``, one a dispatch;
+``engine.first_token``; ``engine.paste``), ``engine.decode`` (the backend's
+step, which enqueues the forward), ``engine.sample`` (which waits for the
+device) and ``engine.retire`` (the finish loop).  The engine never owns a
+run loop beyond :meth:`ServeEngine.run_until_drained`; ``inject``,
+``preempt(slot, requeue=False)``, ``forget_lane`` and ``pull_queued`` are
+the hooks a fleet uses.  Tensors go to the model's device (``cuda`` unless built otherwise).
 """
 
 from __future__ import annotations
@@ -307,12 +315,23 @@ class ServeEngine:
         ``widths[j]`` is the prefill width request j was padded to (its
         bucket length, or its exact context length on the fallback path)."""
         ls = self.lane_sampling
-        for (req, _), slot in zip(items, slots):
-            ls.set_lane(slot, req.sampling)
-            if req.saved_key is not None:     # resume: continue the stream
-                ls.key[slot] = req.saved_key
-        toks = self.sampler.sample(logits[:, :self.vocab],
-                                   lanes=np.asarray(slots))
+        with self.metrics.phase("engine.first_token"):
+            for (req, _), slot in zip(items, slots):
+                ls.set_lane(slot, req.sampling)
+                if req.saved_key is not None:     # resume: continue the stream
+                    ls.key[slot] = req.saved_key
+            toks = self.sampler.sample(logits[:, :self.vocab],
+                                       lanes=np.asarray(slots))
+        with self.metrics.phase("engine.paste"):
+            self._paste_group(items, slots, toks, group_cache, now, widths)
+
+    def _paste_group(self, items: List[Tuple[Request, Reservation]],
+                     slots: List[int], toks: np.ndarray, group_cache,
+                     now: float, widths: List[int]) -> None:
+        """Each admitted request's first token, its lane's cache pasted
+        from the group's and its lane set up (or freed at once when it
+        finished at admission)."""
+        ls = self.lane_sampling
         t_first = self._now()
         for j, ((req, res), slot) in enumerate(zip(items, slots)):
             n_ctx = self._ctx_len(req)
@@ -343,21 +362,66 @@ class ServeEngine:
     def _admit(self) -> None:
         # loop: requests that finish AT admission (max_new=1 / instant EOS)
         # leave their lane idle — refill it this round, not next step
-        while self._admit_once():
-            pass
+        with self.metrics.phase("engine.admit"):
+            while self._admit_once():
+                pass
 
     def _admit_once(self) -> bool:
         """One admission round; True if a lane freed up again (re-admit)."""
+        with self.metrics.phase("engine.schedule"):
+            work = self._schedule()
+        if work is None:
+            return False
+        free, now, n_done_before, groups, fallback = work
+        # one dispatch per chunk of a bucket's group
+        for blen, items in sorted(groups.items()):
+            for i in range(0, len(items), self.max_prefill_batch):
+                chunk = items[i:i + self.max_prefill_batch]
+                with self.metrics.phase("engine.prefill"):
+                    toks = np.full((len(chunk), blen), self.config.pad_id,
+                                   np.int32)
+                    lens = np.zeros((len(chunk),), np.int32)
+                    for j, (req, _) in enumerate(chunk):
+                        seq = self._prefill_tokens(req)
+                        toks[j, :len(seq)] = seq
+                        lens[j] = len(seq)
+                    logits, group_cache = self._prefill_n(
+                        self.params, self._to_device(toks), self._to_device(lens))
+                    self.metrics.on_prefill(len(chunk), blen * len(chunk))
+                slots = [free.pop(0) for _ in chunk]
+                self._admit_group(chunk, slots, logits, group_cache, now,
+                                  widths=[blen] * len(chunk))
+        for req, res in fallback:
+            with self.metrics.phase("engine.prefill"):
+                seq = self._prefill_tokens(req)
+                b = {"tokens": self._to_device(seq[None])}
+                for k, v in req.extra.items():
+                    b[k] = self._to_device(np.asarray(v)[None])
+                logits, one_cache = self.model.prefill(self.params, b, self.max_len)
+                self.metrics.on_prefill(1, self._ctx_len(req))
+            self._admit_group([(req, res)], [free.pop(0)], logits, one_cache,
+                              now, widths=[self._ctx_len(req)])
+
+        return (len(self.finished) > n_done_before
+                and self.scheduler.depth > 0)
+
+    def _schedule(self):
+        """The scheduling half of an admission round: the requests popped
+        from the queue, their reservations, and the split into snapshot
+        restores and full cache hits (placed on lanes here) and the
+        batched and exact-length prefill work.  None when no lane is free
+        or nothing is popped; else (free lanes, now, finished count before
+        the round, the batched work grouped by bucket, the fallback)."""
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free:
-            return False
+            return None
         now = self._now()
         batch = self.scheduler.pop(
             len(free), now, footprint=self._footprint,
             budget=self.backend.budget_tokens,
             capacity=self.backend.capacity_tokens)
         if not batch:
-            return False
+            return None
         n_done_before = len(self.finished)
 
         # reserve capacity per request (allocate-on-admit): reject what can
@@ -399,40 +463,13 @@ class ServeEngine:
                   and self._ctx_len(req) <= self.max_len)
             (batched if ok else fallback).append((req, res))
 
-        # group eligible requests by padded bucket length, then chunk each
-        # group to the prefill batch limit -> one dispatch per chunk
+        # group eligible requests by padded bucket length; each group is
+        # chunked to the prefill batch limit, one dispatch per chunk
         groups = {}
         for req, res in batched:
             groups.setdefault(self._bucket_len(self._ctx_len(req)),
                               []).append((req, res))
-        for blen, items in sorted(groups.items()):
-            for i in range(0, len(items), self.max_prefill_batch):
-                chunk = items[i:i + self.max_prefill_batch]
-                toks = np.full((len(chunk), blen), self.config.pad_id,
-                               np.int32)
-                lens = np.zeros((len(chunk),), np.int32)
-                for j, (req, _) in enumerate(chunk):
-                    seq = self._prefill_tokens(req)
-                    toks[j, :len(seq)] = seq
-                    lens[j] = len(seq)
-                logits, group_cache = self._prefill_n(
-                    self.params, self._to_device(toks), self._to_device(lens))
-                self.metrics.on_prefill(len(chunk), blen * len(chunk))
-                slots = [free.pop(0) for _ in chunk]
-                self._admit_group(chunk, slots, logits, group_cache, now,
-                                  widths=[blen] * len(chunk))
-        for req, res in fallback:
-            seq = self._prefill_tokens(req)
-            b = {"tokens": self._to_device(seq[None])}
-            for k, v in req.extra.items():
-                b[k] = self._to_device(np.asarray(v)[None])
-            logits, one_cache = self.model.prefill(self.params, b, self.max_len)
-            self.metrics.on_prefill(1, self._ctx_len(req))
-            self._admit_group([(req, res)], [free.pop(0)], logits, one_cache,
-                              now, widths=[self._ctx_len(req)])
-
-        return (len(self.finished) > n_done_before
-                and self.scheduler.depth > 0)
+        return free, now, n_done_before, groups, fallback
 
     def _resume_lane(self, req: Request, slot: int, now: float) -> None:
         """Place a request on a lane WITHOUT a prefill dispatch (state
@@ -536,34 +573,48 @@ class ServeEngine:
         Every prefill and decode dispatch happens here, with grad mode off:
         params that require grad (fresh from a trainer) build no autograd
         graph and keep no activations."""
-        # grow RUNNING lanes before admission takes the last free blocks —
-        # else a fresh admission pays a whole prefill only to be the LIFO
-        # victim of an older lane's growth this same step
-        self._prepare_lanes()
-        self._admit()
-        # second pass covers lanes admitted above whose context ends
-        # exactly on a block boundary, plus full-hit lanes whose first
-        # write lands in a shared block (COW split)
-        self._prepare_lanes()
-        if self.active() == 0:
-            return 0
-        toks = np.zeros((self.max_batch, 1), np.int32)
-        for i, req in enumerate(self.slots):
-            if req is None:
-                continue
-            # normally the lane's last sampled token; a lane admitted
-            # without prefill (full hit) re-feeds its last context token to
-            # produce the next logits
-            toks[i, 0] = req.out_tokens[-1] if req.out_tokens \
-                else req.prompt[-1]
-        active = np.asarray([s is not None for s in self.slots])
-        logits = self.backend.step(self.params, toks, active)
+        phase = self.metrics.phase
+        with phase("engine.step"):
+            # grow RUNNING lanes before admission takes the last free blocks
+            # — else a fresh admission pays a whole prefill only to be the
+            # LIFO victim of an older lane's growth this same step
+            with phase("engine.prepare"):
+                self._prepare_lanes()
+            self._admit()
+            with phase("engine.prepare"):
+                # second pass covers lanes admitted above whose context ends
+                # exactly on a block boundary, plus full-hit lanes whose
+                # first write lands in a shared block (COW split)
+                self._prepare_lanes()
+                if self.active() == 0:
+                    return 0
+                toks = np.zeros((self.max_batch, 1), np.int32)
+                for i, req in enumerate(self.slots):
+                    if req is None:
+                        continue
+                    # normally the lane's last sampled token; a lane admitted
+                    # without prefill (full hit) re-feeds its last context
+                    # token to produce the next logits
+                    toks[i, 0] = req.out_tokens[-1] if req.out_tokens \
+                        else req.prompt[-1]
+                active = np.asarray([s is not None for s in self.slots])
+            with phase("engine.decode"):
+                logits = self.backend.step(self.params, toks, active)
+            with phase("engine.sample"):
+                # one host transfer per step: Sampler.sample returns host
+                # numpy; tolist() converts the whole batch at once so the
+                # per-lane loop below never touches a device tensor
+                # element-wise
+                # repro-lint: allow[R004] Sampler.sample returns host numpy: one list conversion a step
+                nxt = self.sampler.sample(logits[:, :self.vocab]).tolist()
+            with phase("engine.retire"):
+                self._retire(nxt)
+        return self.active()
+
+    def _retire(self, nxt: List[int]) -> None:
+        """Append each lane's sampled token, free the lanes that finished,
+        and count the step."""
         ls = self.lane_sampling
-        # one host transfer per step: Sampler.sample returns host numpy;
-        # tolist() converts the whole batch at once so the per-lane loop
-        # below never touches a device tensor element-wise
-        # repro-lint: allow[R004] Sampler.sample returns host numpy: one list conversion a step
-        nxt = self.sampler.sample(logits[:, :self.vocab]).tolist()
         now = self._now()
         busy = self.active()          # before the finish-scan frees lanes
         for i, req in enumerate(self.slots):
@@ -583,7 +634,6 @@ class ServeEngine:
         self.steps += 1
         self.metrics.on_step(self.scheduler.depth, busy, now,
                              blocks_in_use=self.backend.blocks_in_use)
-        return self.active()
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:
         for _ in range(max_steps):

@@ -14,6 +14,14 @@ Definitions (standard serving vocabulary):
 events and asks for a :class:`EngineSnapshot` — a frozen, structured view
 suitable for logging, benches, and assertions in tests.
 
+It also keeps the host time of the engine's phases (:data:`PHASES`): each
+phase's calls and seconds on the wall clock (``time.perf_counter``), never
+on the engine's injectable clock, which a fleet runs as a simulated clock
+that does not move within a step.  ``MetricsCollector.phase(name)`` is the
+phase's span (:mod:`repro_torch.runtime.spans`), and
+``EngineSnapshot.phases`` carries the counters outside the snapshot's
+equality, so two identical runs still give equal snapshots.
+
 SLO accounting (fleet/scale plane) lives here too: :class:`SLOClass`
 declares a traffic class's TTFT/TPOT targets, :func:`slo_report` folds
 per-request outcomes into an :class:`SLOReport` with per-class p50/p99
@@ -28,6 +36,15 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.runtime.spans import Phase, span
+
+# the engine's phases: ``engine.step`` holds the others, ``engine.admit``
+# holds ``engine.schedule``, ``engine.prefill`` (one a dispatch),
+# ``engine.first_token`` and ``engine.paste``
+PHASES = ("engine.step", "engine.prepare", "engine.admit", "engine.schedule",
+          "engine.prefill", "engine.first_token", "engine.paste", "engine.decode",
+          "engine.sample", "engine.retire")
 
 
 def _percentile(xs: List[float], q: float) -> float:
@@ -101,6 +118,10 @@ class EngineSnapshot:
     spec_accepted_tokens: int = 0      # proposals the target agreed with
     spec_acceptance_rate: float = 0.0  # accepted / drafted (token-weighted)
     spec_accepted_series: Tuple[int, ...] = ()  # accepted count per round
+    # host time of the engine's phases, {name: {"calls", "seconds"}}, on
+    # the wall clock: outside equality, no two runs share it
+    phases: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict,
+                                                             compare=False)
 
     def as_dict(self) -> Dict:
         return dataclasses.asdict(self)
@@ -274,6 +295,11 @@ class MetricsCollector:
         self.spec_accepted_series: List[int] = []
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
+        self._phases = {name: Phase() for name in PHASES}
+
+    def phase(self, name: str) -> Phase:
+        """The span of one of the engine's :data:`PHASES`, counted."""
+        return span(name, self._phases[name])
 
     # ------------------------------------------------------------------
     def on_prefill(self, n_requests: int, n_tokens: int = 0) -> None:
@@ -383,4 +409,6 @@ class MetricsCollector:
                 self.spec_accepted_tokens / self.spec_drafted_tokens
                 if self.spec_drafted_tokens else 0.0),
             spec_accepted_series=tuple(self.spec_accepted_series),
+            phases={name: {"calls": p.calls, "seconds": p.seconds}
+                    for name, p in self._phases.items()},
         )

@@ -38,20 +38,35 @@ def both():
     return [_ns(pkg) for pkg in PACKAGES]
 
 
+def _uncompared() -> frozenset:
+    """Names of the fields that the port's snapshots keep outside their
+    equality (``compare=False``): ``EngineSnapshot.phases``, the host
+    seconds of the engine's phases, which no two runs share and the
+    reference does not keep."""
+    from repro_torch.serving.metrics import EngineSnapshot
+    return frozenset(f.name for f in dataclasses.fields(EngineSnapshot) if not f.compare)
+
+
+UNCOMPARED = _uncompared()
+
+
 def same(a, b) -> bool:
     """Exact structural equality across the two packages: dataclasses by
-    class name and fields, arrays by dtype, shape and values, NaN == NaN."""
+    class name and fields, arrays by dtype, shape and values, NaN == NaN.
+    A field outside its dataclass's equality is not compared, nor its key
+    in an ``as_dict()`` (``UNCOMPARED``)."""
     if dataclasses.is_dataclass(a) and not isinstance(a, type):
         return (dataclasses.is_dataclass(b) and type(a).__name__ == type(b).__name__
                 and all(same(getattr(a, f.name), getattr(b, f.name))
-                        for f in dataclasses.fields(a)))
+                        for f in dataclasses.fields(a) if f.compare))
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
                 and a.dtype == b.dtype and a.shape == b.shape
                 and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
     if isinstance(a, dict):
-        return isinstance(b, dict) and a.keys() == b.keys() and all(same(a[k], b[k])
-                                                                    for k in a)
+        keys = a.keys() - UNCOMPARED
+        return isinstance(b, dict) and keys == b.keys() - UNCOMPARED and all(
+            same(a[k], b[k]) for k in keys)
     if isinstance(a, (list, tuple)):
         return (type(a) is type(b) and len(a) == len(b)
                 and all(same(x, y) for x, y in zip(a, b)))
