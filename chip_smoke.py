@@ -16,7 +16,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    and fp32, the rwkv6 and SSD kernels also against their token
    recurrences under strong decay, each of their gates' margin printed),
    and time kernel, plain version and a library call (and the rwkv6 and
-   SSD backwards); every kernel also by its device time alone
+   SSD backwards: WKV6's backward kernel at 8 x 1024 and 8 x 512 against
+   the plain VJP, all five gradients, beside its bound); every kernel also
+   by its device time alone
    (torch.profiler), beside the library call's, and SSD and WKV6 against
    their bounds on tensor cores and as fp32 vector work; then flash, both
    decode kernels and RMSNorm at the shapes the other families give them
@@ -198,12 +200,14 @@ launches of its prefill dispatches and decode steps, a recurrent serving path ex
 decode steps' launches (a prefill: the WKV6 or SSD kernel once a layer,
 flash once a zamba2 shared-block firing; a decode step: the decode kernel
 once a firing and no scan kernel; RMSNorm in both), the rwkv6 training
-path the rwkv6 kernel (24 times a forward, twice that under remat) and
-RMSNorm and no decode kernel, the zamba2
+path the rwkv6 kernel (24 times a forward, twice that under remat), its
+backward kernel (24 times a step in bf16) and RMSNorm and no decode
+kernel, the zamba2
 training path the SSD kernel (42 times a forward, 84 a step), flash (7
 and 14) and RMSNorm and no decode kernel, a pipelined training step
 exactly each layer's kernels once per forward its (stage, microbatch)
-runs (``pp_launches``) and no decode kernel, a speculative path exactly
+runs and, in bf16, the rwkv6 backward kernel once per (stage, microbatch)
+(``pp_launches``) and no decode kernel, a speculative path exactly
 its prefills' and its target and draft steps' launches, rollback's
 replayed steps included, a fleet exactly the sum over its units of their
 prefill dispatches' and steps' launches, the other families' paths
@@ -532,6 +536,7 @@ def phase_kernels(results: dict) -> None:
     decode_floor(results, gen)
     decode_d112(gen)
     rwkv6_kernel(results, gen)
+    rwkv6_backward_kernel(results, gen)
     ssd_kernel(results, gen)
     family_kernels(results, gen)
 
@@ -1072,8 +1077,8 @@ def rwkv6_kernel(results: dict, gen: torch.Generator) -> None:
     kern = [lambda a=a: krwkv.rwkv6_cuda(*a) for a in sets]
     ms, dev_ms = sync_time_ms(kern, iters=FAST_ITERS), device_ms(kern)
     plain_ms = sync_time_ms([lambda a=a: krwkv.rwkv6_chunked_plain(*a) for a in sets], iters=5)
-    # the autograd backward (autograd through the plain version, recomputed)
-    # of ops.rwkv6_scan at the training step's shape, bf16 like the model
+    # the autograd backward of ops.rwkv6_scan at the training step's shape,
+    # bf16 like the model (the backward kernel, then the log-decay's own)
     r, k, v, lw, u = (x.detach().clone().requires_grad_(True) for x in args)
     w = torch.exp(lw)
     out = ops.rwkv6_scan(r, k, v, w, u)
@@ -1089,8 +1094,8 @@ def rwkv6_kernel(results: dict, gen: torch.Generator) -> None:
     f32_ms, f32_by = bound(flops, PEAK_F32_FLOPS, RWKV_BYTES)
     log(f"[kernels] rwkv6 B={b} T={t} H={h} K={dk} bf16: max_abs_err {err:.3e}; gate margins "
         f"(error / limit; bf16: the tensor-core body, f32: the scalar body): {margins}; kernel "
-        f"{ms:.4f} ms (device {dev_ms:.4f})  plain {plain_ms:.4f} ms  backward (autograd "
-        f"through the plain version) {bwd_ms:.4f} ms  bound on tensor cores {b_ms:.4f} ms "
+        f"{ms:.4f} ms (device {dev_ms:.4f})  plain {plain_ms:.4f} ms  backward (ops.rwkv6_scan "
+        f"under autograd) {bwd_ms:.4f} ms  bound on tensor cores {b_ms:.4f} ms "
         f"({b_by}), as fp32 vector work {f32_ms:.4f} ms ({f32_by}; {flops / 1e9:.2f} GFLOP, "
         f"{RWKV_BYTES / 1e6:.1f} MB)")
     results["rwkv6_scan"] = dict(
@@ -1100,6 +1105,82 @@ def rwkv6_kernel(results: dict, gen: torch.Generator) -> None:
         library="none: no single PyTorch call computes the WKV6 recurrence", device_ms=dev_ms,
         bound_fp32_vector_ms=f32_ms, backward_ms=bwd_ms,
         shape=f"B={b} T={t} H={h} K={dk} bf16, log-decay -exp(-4 + 0.8 N)")
+
+
+RWKV_BWD_SHAPES = ((8, 1024, 32, 64),      # the benchmark's rwkv6-1.6b.train cell
+                   (8, 512, 32, 64))       # the train phase
+
+
+def rwkv6_bwd_flops(b: int, t: int, h: int, dk: int, c: int = 16) -> float:
+    """Operations of the chunked WKV6 backward at the kernel's chunk ``c``,
+    a multiply-add as 2, the exponentials left out: per chunk and (batch,
+    head) five K x c x K products (S0 g, Gc v, Gc^T kd, the update of G and
+    the forward walk's of S: 10cK^2), A and P over the pairs s <= t (2K and
+    3K a pair), dr's and dk's pair sums (3K each a pair s < t) and P g (2K
+    a pair s <= t)."""
+    pairs, below = c * (c + 1) // 2, c * (c - 1) // 2
+    per_chunk = 10 * c * dk * dk + pairs * 4 * dk + below * 9 * dk
+    return float(b * h * -(-t // c) * per_chunk)
+
+
+def rwkv6_bwd_bytes(b: int, t: int, h: int, dk: int) -> int:
+    """Bytes the backward reads and writes once: r, k, v, g in and dr, dk, dv
+    out in bf16, the log-decay in and its gradient out in fp32, u and du."""
+    n = b * t * h * dk
+    return 7 * n * 2 + 2 * n * 4 + 2 * h * dk * 4
+
+
+def _wkv6_plain_vjp(r, k, v, lw, u, g):
+    """(dr, dk, dv, dlog_w, du) by autograd through the plain chunked
+    version, the bf16 path's backward before its kernel."""
+    from repro_torch.kernels import rwkv6_scan as krwkv
+    with torch.enable_grad():
+        xs = [a.detach().clone().requires_grad_(True) for a in (r, k, v, lw, u)]
+        return torch.autograd.grad(krwkv.rwkv6_chunked_plain(*xs), xs, g)
+
+
+def rwkv6_backward_kernel(results: dict, gen: torch.Generator) -> None:
+    """The WKV6 backward kernel at ``RWKV_BWD_SHAPES``, bf16, log-decay as
+    ``rwkv6_inputs`` draws it: all five gradients against autograd through
+    the plain version within BF16_TOL x max(1, |ref|) (each gate's margin
+    printed); kernel time (events, device), the plain VJP's and the bounds
+    (bytes; the products as fp32 vector work)."""
+    from repro_torch.kernels import rwkv6_scan as krwkv
+    rows = []
+    for shape in RWKV_BWD_SHAPES:
+        b, t, h, dk = shape
+        r, k, v, g = (_rand(shape, torch.bfloat16, gen) for _ in range(4))
+        lw = -torch.exp(-4.0 + 0.8 * _rand(shape, torch.float32, gen))
+        args = (r, k, v, lw, 0.3 * _rand(shape[2:], torch.float32, gen), g)
+        got, ref = krwkv.rwkv6_bwd_cuda(*args), _wkv6_plain_vjp(*args)
+        margins = check_gates(f"rwkv6 backward B={b} T={t}", {
+            name: gate(a, e, BF16_TOL, True)
+            for name, a, e in zip(("dr", "dk", "dv", "dlog_w", "du"), got, ref)})
+        del got, ref
+        kern = [lambda: krwkv.rwkv6_bwd_cuda(*args)]
+        ms, dev_ms = sync_time_ms(kern, iters=50), device_ms(kern, iters=20)
+        plain_ms = sync_time_ms([lambda: _wkv6_plain_vjp(*args)], iters=3, warmup=1)
+        nbytes = rwkv6_bwd_bytes(*shape)
+        b_ms = nbytes / PEAK_BYTES * 1e3
+        flops = rwkv6_bwd_flops(*shape)
+        f32_ms, f32_by = bound(flops, PEAK_F32_FLOPS, nbytes)
+        scratch = b * h * -(-t // krwkv.BWD_CHUNK) * dk * dk * 4
+        log(f"[kernels] rwkv6 backward B={b} T={t} H={h} K={dk} bf16: gate margins (error / "
+            f"limit, vs autograd through the plain version): {margins}; kernel {ms:.4f} ms "
+            f"(device {dev_ms:.4f})  plain VJP {plain_ms:.3f} ms  bound {b_ms:.4f} ms (bytes, "
+            f"{nbytes / 1e6:.1f} MB; the state scratch {scratch / 1e6:.1f} MB written and read "
+            f"again adds {2 * scratch / PEAK_BYTES * 1e3:.4f}), as fp32 vector work "
+            f"{f32_ms:.4f} ms ({f32_by}; {flops / 1e9:.2f} GFLOP)")
+        rows.append(dict(shape=f"B={b} T={t} H={h} K={dk} bf16", ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                         bound_fp32_vector_ms=f32_ms, margins=margins))
+        del args, r, k, v, g, lw
+    results["rwkv6_scan_bwd"] = dict(
+        name="rwkv6_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_bwd.cu",
+        replaces="none: the reference's backward is the AD of its oracle "
+                 "(src/repro/kernels/ops.py, _rwkv6_b)",
+        library="none", rows=rows, **{k: rows[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                                               "bound_ms", "bound_by")})
 
 
 # ---------------------------------------------------------------------------
@@ -1336,7 +1417,9 @@ def check_served_kernels(tag: str, drive, want: dict, worst_args: dict | None = 
     plain version on the same inputs and gates the two, so every kernel is
     held at the shapes, strides and values the served path gives it: a bf16
     output within BF16_TOL x max(1, |ref|) elementwise, an fp32 one (the
-    SSD's final state) within SCAN_F32_TOL x max|ref|.  ``want``: the calls
+    SSD's final state) within SCAN_F32_TOL x max|ref|; the WKV6 backward's
+    five gradients (against autograd through the plain version) all within
+    BF16_TOL x max(1, |ref|), its inputs being bf16.  ``want``: the calls
     by kernel that ``drive`` must make (or a function that gives them once
     ``drive`` has run).  Returns, by kernel, the calls, the
     shapes of their first two inputs and the worst margin (error / limit);
@@ -1354,6 +1437,7 @@ def check_served_kernels(tag: str, drive, want: dict, worst_args: dict | None = 
                                         kpaged.paged_decode_attention_plain),
              "rmsnorm": (krms, "rmsnorm_cuda", krms.rmsnorm_plain),
              "rwkv6_scan": (krwkv, "rwkv6_cuda", krwkv.rwkv6_chunked_plain),
+             "rwkv6_scan_bwd": (krwkv, "rwkv6_bwd_cuda", _wkv6_plain_vjp),
              "mamba2_ssd": (kssd, "mamba2_ssd_cuda", kssd.mamba2_ssd_chunked_plain)}
     seen = {name: dict(calls=0, shapes=set(), margin=0.0) for name in pairs}
 
@@ -1368,7 +1452,7 @@ def check_served_kernels(tag: str, drive, want: dict, worst_args: dict | None = 
                                          f"{tuple(got.shape)} vs {tuple(r.shape)} or "
                                          f"non-finite output")
                 m = (gate(got, r, BF16_TOL, True) if got.dtype == torch.bfloat16
-                     else gate(got, r, SCAN_F32_TOL, False))
+                     or name == "rwkv6_scan_bwd" else gate(got, r, SCAN_F32_TOL, False))
                 if worst_args is not None and (name not in worst_args or m > rec["margin"]):
                     worst_args[name] = args
                 rec["margin"] = max(rec["margin"], m)
@@ -4329,9 +4413,11 @@ def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
     losses = out["losses"]
     check_train_path(counts, RWKV_TRAIN_PATH, "full-width rwkv6 training")
     per_fwd = cfg.n_layers * (2 if rcfg.remat else 1)
-    if counts["rwkv6_scan"] != per_fwd * n_steps or counts["flash_attention"]:
+    if counts["rwkv6_scan"] != per_fwd * n_steps or \
+            counts["rwkv6_scan_bwd"] != cfg.n_layers * n_steps or counts["flash_attention"]:
         raise AssertionError(f"launches {counts}: the rwkv6 kernel must run {per_fwd} times a "
-                             f"step ({cfg.n_layers} layers, remat {rcfg.remat})")
+                             f"step ({cfg.n_layers} layers, remat {rcfg.remat}) and its "
+                             f"backward kernel {cfg.n_layers}")
     loss_after = eval_loss(out["params"])
     if not all(np.isfinite(losses)) or not loss_after < loss_before:
         raise AssertionError(f"training losses {losses}, held-out loss {loss_before} -> "
@@ -4367,16 +4453,19 @@ def phase_train(results: dict, n_steps: int = 20, warmup: int = 3) -> None:
                                reps=1, spans=("rwkv6_backward", "rmsnorm_backward"))
     busy = sum(r[0] for r in rows) / 1e3
     fwd = sum(r[0] for r in rows if "rwkv6_kernel" in r[2]) / 1e3
+    bwd_k = [r for r in rows if "wkv6_bwd_kernel" in r[2]]
     bwd_us, bwd_n = spans["rwkv6_backward"]
     gemm = sum(r[0] for r in rows if "gemm" in r[2].lower() or "nvjet" in r[2]) / 1e3
-    if bwd_n != cfg.n_layers:
-        raise AssertionError(f"a step ran the rwkv6 backward {bwd_n} times, not {cfg.n_layers}")
+    if bwd_n != cfg.n_layers or sum(r[1] for r in bwd_k) != cfg.n_layers:
+        raise AssertionError(f"a step ran the rwkv6 backward {bwd_n} times and its kernel "
+                             f"{sum(r[1] for r in bwd_k)}, not {cfg.n_layers}")
     rms_us, rms_n = spans["rmsnorm_backward"]
     rms_fwd = sum(r[0] for r in rows if "rmsnorm" in r[2]) / 1e3
     log(f"[train] within a profiled step of {busy:.1f} ms device time: the rwkv6 forward "
-        f"kernel {fwd:.2f} ms ({per_fwd} launches); the rwkv6 backward (autograd through the "
-        f"plain version, span rwkv6_backward) {bwd_us / 1e3:.1f} ms over {bwd_n} entries "
-        f"({bwd_us / 1e3 / bwd_n:.2f} ms each); the RMSNorm forward kernel {rms_fwd:.2f} ms, "
+        f"kernel {fwd:.2f} ms ({per_fwd} launches); the rwkv6 backward kernel "
+        f"{sum(r[0] for r in bwd_k) / 1e3:.2f} ms ({cfg.n_layers} launches; its span "
+        f"rwkv6_backward {bwd_us / 1e3:.2f} ms over {bwd_n} entries in key_averages(), which "
+        f"leaves the kernel out of the span); the RMSNorm forward kernel {rms_fwd:.2f} ms, "
         f"its backward (span rmsnorm_backward) {rms_us / 1e3:.2f} ms over {rms_n} entries; "
         f"cuBLAS GEMMs {gemm:.1f} ms")
 
@@ -4662,13 +4751,14 @@ def _wkv6_f64(r, k, v, log_w, u) -> torch.Tensor:
     return torch.stack(outs, dim=1)
 
 
-def pp_launches(cfg, g, schedule: str, remat: bool) -> dict:
-    """Kernel launches of one pipelined step (forward kernels; the backwards
-    run the plain versions): every layer's kernels once per forward its
-    (stage, microbatch) runs -- with grad, plus remat's recompute, plus, on
-    the hybrid's stages before the last, the forward of the F tick -- and
-    the final norm once per microbatch, over the R replica columns of the
-    one data replica the phase's (1, 2) mesh has."""
+def pp_launches(cfg, g, schedule: str, remat: bool, bf16: bool) -> dict:
+    """Kernel launches of one pipelined step: every layer's forward kernels
+    once per forward its (stage, microbatch) runs -- with grad, plus remat's
+    recompute, plus, on the hybrid's stages before the last, the forward of
+    the F tick -- and the final norm once per microbatch, over the R replica
+    columns of the one data replica the phase's (1, 2) mesh has; in bf16
+    (``bf16``) an rwkv6 layer's backward kernel once per (stage, microbatch)
+    (the other backwards run the plain versions)."""
     from repro_torch.kernels import ops
     from repro_torch.models.blocks import is_recurrent
     layer = ({"rwkv6_scan": 1, "rmsnorm": 2} if cfg.rwkv else
@@ -4684,6 +4774,8 @@ def pp_launches(cfg, g, schedule: str, remat: bool) -> dict:
             for kern in [layer] + fire:
                 for name, n in kern.items():
                     want[name] += n * fwds * cols
+            if cfg.rwkv and bf16:
+                want["rwkv6_scan_bwd"] += cols
     want["rmsnorm"] += cols
     return want
 
@@ -4746,7 +4838,7 @@ def phase_train_pp(results: dict, n_steps: int = 10, n_warm: int = 10,
                                        mesh, opt_cfg, device="cuda")
             g, sch = built["geometry"], built["schedule"]
             pp = built["to_pipeline"](clone(p0))
-            want = pp_launches(cfg, g, schedule, rcfg.remat)
+            want = pp_launches(cfg, g, schedule, rcfg.remat, bf16=False)
             ops.reset_launch_counts()
             if schedule == "hybrid":
                 out = {}
@@ -4820,7 +4912,7 @@ def phase_train_pp(results: dict, n_steps: int = 10, n_warm: int = 10,
     opt = dict(m=built["to_pipeline"](o["m"]), v=built["to_pipeline"](o["v"]), step=o["step"])
     del p, o, data
     loss_before = eval_loss(params)
-    per_step = pp_launches(cfg, g, "hybrid", rcfg.remat)
+    per_step = pp_launches(cfg, g, "hybrid", rcfg.remat, bf16=rcfg.compute_dtype == "bfloat16")
     b0 = next(token_batches(pipe, n_warm, "cuda"))
     worst = {}
     served = check_served_kernels("rwkv6-1.6b pipelined step", lambda: sch(params, b0), per_step,
@@ -4835,12 +4927,27 @@ def phase_train_pp(results: dict, n_steps: int = 10, n_warm: int = 10,
     if not f64_margin <= 1.0:
         raise AssertionError(f"rwkv6 kernel against the float64 recurrence in the pipelined "
                              f"step: margin {f64_margin:.3f}")
+    # the backward kernel on that call's inputs (a seeded output gradient)
+    # against the plain VJP, and both against the float64 recurrence's
+    gout = _rand(args[0].shape, torch.bfloat16, torch.Generator(device="cuda").manual_seed(0))
+    names = ("dr", "dk", "dv", "dlog_w", "du")
+    kb, pb = krwkv.rwkv6_bwd_cuda(*args, gout), _wkv6_plain_vjp(*args, gout)
+    with torch.enable_grad():
+        xs = [a.detach().double().requires_grad_(True) for a in args]
+        f64b = torch.autograd.grad(_wkv6_f64(*xs), xs, gout.double())
+    bwd_margins = check_gates("rwkv6 backward kernel against the plain VJP in the pipelined "
+                              "step", {n: gate(a, e, BF16_TOL, True)
+                                       for n, a, e in zip(names, kb, pb)})
+    f64_bwd = ", ".join(f"{n} {gate(a, e, BF16_TOL, True):.3f} / "
+                        f"{gate(q, e, BF16_TOL, True):.3f}" for n, a, q, e in zip(names, kb, pb, f64b))
     log(f"[train-pp] rwkv6-1.6b pipelined step (bf16, remat, hybrid), each kernel against its "
         f"plain version at the step's shapes (bf16 gate {BF16_TOL} x max(1, |ref|)): {served}; "
         f"the WKV6 call farthest from it against the float64 recurrence (max|ref| "
         f"{f64.abs().max().item():.4g}): kernel margin {f64_margin:.3f}, plain version "
-        f"{plain_margin:.3f}")
-    del worst, args, f64
+        f"{plain_margin:.3f}; the backward kernel on that call against the plain VJP: "
+        f"{bwd_margins}; against the float64 recurrence's gradients, kernel / plain VJP: "
+        f"{f64_bwd}")
+    del worst, args, f64, kb, pb, f64b, xs, gout
     events = []
 
     def on_metrics(step, rec):

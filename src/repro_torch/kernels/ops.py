@@ -11,6 +11,10 @@ plain version,
 recomputed from the saved inputs (the reference's oracle-AD backward,
 ``repro/kernels/ops.py``); without grad mode, or when no input requires
 grad, they call the kernel directly, so serving pays no autograd cost.
+``rwkv6_scan``'s backward on bf16 r/k/v is a kernel of its own
+(``rwkv6_scan.rwkv6_bwd_cuda``, the gradients in closed form in fp32); on
+fp32 ones (the parity runs, fp32 fleets) it stays autograd through the plain
+version.  The inputs' dtype chooses; there is no other switch.
 Each backward runs inside a span (:func:`repro_torch.runtime.spans.span`),
 ``flash_attention_backward``, ``rmsnorm_backward``, ``rwkv6_backward`` and
 ``mamba2_ssd_backward``, so a profile reads its device time within a step;
@@ -21,8 +25,9 @@ grad while grad mode is on, so no gradient is dropped silently.  On CPU
 tensors the plain versions are differentiable as they are.
 
 Each kernel module keeps a plain-integer count of its launches
-(``<module>.launches``); :func:`launch_counts` reads them all, so a run can
-show that it went through the kernels.
+(``<module>.launches``, and ``rwkv6_scan.bwd_launches`` for the WKV6
+backward); :func:`launch_counts` reads them all, so a run can show that it
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -39,9 +44,11 @@ from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import rwkv6_scan as _rwkv
 from repro_torch.runtime.spans import span
 
-_COUNTED = {"flash_attention": _fa, "decode_attention": _dec,
-            "paged_decode_attention": _paged, "rmsnorm": _rms, "rwkv6_scan": _rwkv,
-            "mamba2_ssd": _ssd}
+# launch counter by name: (module, attribute)
+_COUNTED = {"flash_attention": (_fa, "launches"), "decode_attention": (_dec, "launches"),
+            "paged_decode_attention": (_paged, "launches"), "rmsnorm": (_rms, "launches"),
+            "rwkv6_scan": (_rwkv, "launches"), "rwkv6_scan_bwd": (_rwkv, "bwd_launches"),
+            "mamba2_ssd": (_ssd, "launches")}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -102,8 +109,11 @@ class _RWKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with span("rwkv6_backward"):
-            return _plain_vjp(_rwkv.rwkv6_chunked_plain, ctx.saved_tensors,
-                              ctx.needs_input_grad, g)
+            saved = ctx.saved_tensors
+            if saved[0].dtype != torch.bfloat16:
+                return _plain_vjp(_rwkv.rwkv6_chunked_plain, saved, ctx.needs_input_grad, g)
+            grads = _rwkv.rwkv6_bwd_cuda(*saved, g.contiguous())
+            return tuple(x if n else None for x, n in zip(grads, ctx.needs_input_grad))
 
 
 class _SSD(torch.autograd.Function):
@@ -196,9 +206,9 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in _COUNTED.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _COUNTED.values():
-        mod.launches = 0
+    for mod, attr in _COUNTED.values():
+        setattr(mod, attr, 0)

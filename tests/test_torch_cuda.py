@@ -385,7 +385,7 @@ def test_ops_launch_kernels_and_count(cuda_device):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1, "decode_attention": 1,
                                    "paged_decode_attention": 1, "rmsnorm": 1, "rwkv6_scan": 1,
-                                   "mamba2_ssd": 1}
+                                   "rwkv6_scan_bwd": 0, "mamba2_ssd": 1}
     with pytest.raises(ValueError, match="contiguous"):
         kfa.flash_attention_cuda(q.transpose(1, 2), k, k)
 
@@ -522,6 +522,60 @@ def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda_device):
         krwkv.rwkv6_cuda(r, k, v, lw, u[:1])
 
 
+def _rwkv_plain_grads(r, k, v, lw, u, g):
+    """(dr, dk, dv, dlog_w, du) by autograd through the plain chunked version."""
+    xs = [a.detach().clone().requires_grad_(True) for a in (r, k, v, lw, u)]
+    return torch.autograd.grad(krwkv.rwkv6_chunked_plain(*xs), xs, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,dk,min_log_decay", [
+    (1, 40, 3, 32, -0.1), (8, 40, 3, 64, -1.5),
+    (1, 100, 5, 64, -0.1), (8, 100, 3, 32, -1.5),       # T not a multiple of the chunk
+    (1, 1024, 2, 64, -1.5), (8, 1024, 4, 32, -0.1), (1, 1024, 4, 32, -1.5),
+    (8, 1024, 32, 64, -0.1),            # rwkv6-1.6b's training cell
+    (2, 1, 3, 64, -0.5), (1, 17, 2, 64, -1.5),
+    (2, 37, 4, 64, -5.0), (1, 300, 2, 32, -5.0),         # strong decay
+])
+def test_rwkv6_backward_kernel(cuda_device, b, t, h, dk, min_log_decay):
+    """The backward kernel (bf16 r/k/v) against autograd through the plain
+    chunked version of the same values: all five gradients within
+    2e-2 x max(1, |ref|), the forward's bf16 tolerance.  Log-decay uniform in
+    [min, 0]: at -1.5 a 16-token chunk's sum reaches ~ -12."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * t + h + dk)
+    r, k, v, lw, u = _rwkv_inputs(gen, torch.bfloat16, b, t, h, dk, min_log_decay)
+    g = _rand(gen, torch.bfloat16, b, t, h, dk)
+    got = krwkv.rwkv6_bwd_cuda(r, k, v, lw, u, g)
+    ref = _rwkv_plain_grads(r, k, v, lw, u, g)
+    for name, a, e in zip(("dr", "dk", "dv", "dlog_w", "du"), got, ref):
+        assert a.shape == e.shape and a.dtype == e.dtype, name
+        _assert_close(a, e, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_rwkv6_backward_kernel_is_deterministic_and_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    r, k, v, lw, u = _rwkv_inputs(gen, torch.bfloat16, 4, 70, 3, 64, -1.0)
+    g = _rand(gen, torch.bfloat16, 4, 70, 3, 64)
+    first = krwkv.rwkv6_bwd_cuda(r, k, v, lw, u, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, krwkv.rwkv6_bwd_cuda(r, k, v, lw, u, g)))
+    with pytest.raises(TypeError, match="bfloat16"):
+        krwkv.rwkv6_bwd_cuda(r, k, v, lw, u, g.float())
+    with pytest.raises(TypeError, match="bfloat16"):
+        krwkv.rwkv6_bwd_cuda(*(a.float() for a in (r, k, v)), lw, u, g.float())
+    with pytest.raises(TypeError, match="float32"):
+        krwkv.rwkv6_bwd_cuda(r, k, v, lw, u.bfloat16(), g)
+    with pytest.raises(ValueError, match="shapes"):
+        krwkv.rwkv6_bwd_cuda(r, k, v, lw, u, g[:, :10].contiguous())
+    with pytest.raises(ValueError, match="head dims"):
+        krwkv.rwkv6_bwd_cuda(*(a[..., :16].contiguous() for a in (r, k, v, lw)),
+                             u[:, :16].contiguous(), g[..., :16].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        krwkv.rwkv6_bwd_cuda(r, k, v, lw, u, g.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        krwkv.rwkv6_bwd_cuda(r.cpu(), k, v, lw, u, g)
+
+
 def _grads(fn, xs, seed=1):
     xs = [x.detach().clone().requires_grad_(True) for x in xs]
     out = fn(*xs)
@@ -534,8 +588,9 @@ def _grads(fn, xs, seed=1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gradients_through_the_kernels_match_plain(cuda_device, dtype):
     """The autograd wrappers of ops (kernel forward, backward through the
-    plain version) give the plain versions' gradients: every input gets
-    one, within the forward tolerances."""
+    plain version; rwkv6's bf16 backward through its own kernel) give the
+    plain versions' gradients: every input gets one, within the forward
+    tolerances."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = _rand(gen, dtype, 2, 80, 4, 32), _rand(gen, dtype, 2, 80, 2, 32), \
@@ -562,6 +617,7 @@ def test_gradients_through_the_kernels_match_plain(cuda_device, dtype):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == counts["rmsnorm"] == counts["rwkv6_scan"] == 1
     assert counts["mamba2_ssd"] == 1
+    assert counts["rwkv6_scan_bwd"] == (1 if dtype == torch.bfloat16 else 0)
 
 
 @pytest.mark.cuda
@@ -603,7 +659,7 @@ def test_ops_skip_autograd_when_no_gradient_is_needed(cuda_device):
         assert fn(*(a.detach().requires_grad_(True) for a in xs)).grad_fn is not None
     assert ops.launch_counts() == {"flash_attention": 3, "decode_attention": 0,
                                    "paged_decode_attention": 0, "rmsnorm": 3, "rwkv6_scan": 3,
-                                   "mamba2_ssd": 3}
+                                   "rwkv6_scan_bwd": 0, "mamba2_ssd": 3}
 
 
 def _ssd_inputs(gen, dtype, b, t, h, p, n, decay):

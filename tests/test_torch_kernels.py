@@ -232,7 +232,39 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     assert torch.equal(y, ry) and torch.equal(st, rst)
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
                                    "paged_decode_attention": 0, "rmsnorm": 0, "rwkv6_scan": 0,
-                                   "mamba2_ssd": 0}
+                                   "rwkv6_scan_bwd": 0, "mamba2_ssd": 0}
+
+
+def test_rwkv6_backward_chooses_the_kernel_by_dtype(monkeypatch):
+    """ops' WKV6 autograd node, driven on the CPU with the CUDA wrappers
+    stood in by the plain versions: bf16 r/k/v send the backward to
+    ``rwkv6_bwd_cuda`` (here the closed form it computes), fp32 ones to
+    autograd through the plain version; both give the plain version's
+    gradients, every input one (bf16 within 2e-2 x max(1, |ref|))."""
+    calls = []
+
+    def bwd(*args):
+        calls.append(args[0].dtype)
+        return krwkv.rwkv6_chunked_bwd_plain(*args)
+    monkeypatch.setattr(krwkv, "rwkv6_cuda", krwkv.rwkv6_chunked_plain)
+    monkeypatch.setattr(krwkv, "rwkv6_bwd_cuda", bwd)
+    b, t, h, dk = 2, 37, 3, 32
+    for dtype in (torch.bfloat16, torch.float32):
+        r, k, v = (torch.from_numpy(_normal(i, (b, t, h, dk))).to(dtype) for i in range(3))
+        lw = -torch.from_numpy(np.abs(_normal(3, (b, t, h, dk))))
+        u, g = torch.from_numpy(_normal(4, (h, dk))), torch.from_numpy(_normal(5, (b, t, h, dk)))
+        xs = [a.clone().requires_grad_(True) for a in (r, k, v, lw, u)]
+        got = torch.autograd.grad(ops._RWKV6.apply(*xs), xs, g.to(dtype))
+        ys = [a.clone().requires_grad_(True) for a in (r, k, v, lw, u)]
+        ref = torch.autograd.grad(krwkv.rwkv6_chunked_plain(*ys), ys, g.to(dtype))
+        for a, e in zip(got, ref):
+            assert a.dtype == e.dtype and a.shape == e.shape
+            if dtype == torch.float32:
+                assert torch.equal(a, e)
+            else:
+                err = (a.float() - e.float()).abs()
+                assert (err <= 2e-2 * e.float().abs().clamp_min(1.0)).all()
+    assert calls == [torch.bfloat16]
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -253,6 +285,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                            torch.zeros(1, dtype=torch.int32), 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         krwkv.rwkv6_cuda(q, q, q, q, torch.zeros(4, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        krwkv.rwkv6_bwd_cuda(q, q, q, q, torch.zeros(4, 32), q)
     with pytest.raises(ValueError, match="CUDA"):
         kssd.mamba2_ssd_cuda(q, torch.zeros(1, 8, 4), -torch.ones(4), q[:, :, 0], q[:, :, 0],
                              torch.ones(4))

@@ -20,7 +20,7 @@ from repro.models import rwkv as jrwkv
 import repro_torch.configs as tconfigs
 from repro_torch.convert import tensor_from_numpy, tree_map
 from repro_torch.kernels import ops
-from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_plain
+from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_bwd_plain, rwkv6_chunked_plain
 from repro_torch.models import rwkv as trwkv
 
 FWD_TOL = 3e-5
@@ -64,6 +64,30 @@ def test_rwkv6_scan_matches_jax_forward_and_grads(b, t, h, dk):
     tgrads = torch.autograd.grad(tout, xs, torch.from_numpy(g))
     assert _rel(tout, out) < FWD_TOL
     for name, a, ref in zip("rkvwu", tgrads, jgrads):
+        assert _grad_err(a, ref) < GRAD_TOL, name
+
+
+@pytest.mark.parametrize("b,t,h,dk,strong", [(2, 128, 4, 32, False), (1, 100, 2, 64, False),
+                                             (2, 64, 3, 16, False), (2, 77, 2, 32, False),
+                                             (1, 130, 2, 32, True)])
+def test_closed_form_backward_matches_jax_vjp(b, t, h, dk, strong):
+    """rwkv6_chunked_bwd_plain (the CUDA backward's statement: chunk states,
+    a reverse G walk, d log-decay from the states at each chunk's end and a
+    suffix sum over its rows) against jax.vjp of the
+    reference op, all five gradients; ``strong``: per-step log-decay in
+    [-2.5, -1.5], so a 64-token chunk's log-decay sum passes -88."""
+    rng = np.random.default_rng(t * h + dk + 7)
+    lw = -1.5 - rng.random((b, t, h, dk)) if strong else None
+    r, k, v, w, u = _scan_inputs(t * h + dk + 1, b, t, h, dk, log_decay=lw)
+    lw32 = np.log(w) if lw is None else lw.astype(np.float32)
+    g = rng.standard_normal((b, t, h, dk)).astype(np.float32)
+    _, vjp = jax.vjp(lambda r, k, v, lw, u: kops.rwkv6_scan(r, k, v, jnp.exp(lw), u)[0],
+                     *map(jnp.asarray, (r, k, v, lw32, u)))
+    jgrads = vjp(jnp.asarray(g))
+    tgrads = rwkv6_chunked_bwd_plain(*map(torch.from_numpy, (r, k, v, lw32, u, g)))
+    assert all(bool(torch.isfinite(a).all()) for a in tgrads)
+    for name, a, ref in zip(("dr", "dk", "dv", "dlog_w", "du"), tgrads, jgrads):
+        assert a.shape == ref.shape and a.dtype == torch.float32, name
         assert _grad_err(a, ref) < GRAD_TOL, name
 
 
